@@ -1,0 +1,64 @@
+"""The CUDA flash-forward kernel against its plain PyTorch version, on the
+card. Marked ``cuda``: each test skips where no CUDA device is present
+(run on a GPU host with ``python -m pytest tests/test_torch_flash_cuda.py
+-m cuda``). Imports no jax, so it runs where jax is not installed.
+
+Tolerances: float32 inputs 1e-4 absolute (fp32 sums in another order);
+bfloat16 2e-2 absolute + 2e-2 relative on ``o`` (the kernel rounds p to
+bf16 against its running max, the plain version against the final max,
+and both round o to bf16, one ulp of which is 1.6e-2 at |o| in [2, 4)),
+and 1e-3 on the fp32 ``lse``.
+"""
+
+import pytest
+import torch
+
+from ray_tpu_torch.ops import flash as tflash
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+CASES = {
+    # name: (b, sq, sk, hq, hkv, d, causal, offset)
+    "d16_causal": (2, 96, 96, 4, 2, 16, True, 0),
+    "d64_s77": (2, 77, 77, 4, 2, 64, True, 0),
+    "d128_noncausal": (1, 40, 70, 4, 4, 128, False, 0),
+    "d128_offset": (1, 17, 300, 8, 8, 128, True, 200),
+    "decode_rows": (4, 1, 256, 8, 2, 128, True, None),
+    # last query tiles of 10, 5 and 3 rows (idle warps, split keys)
+    "ragged_s26": (1, 26, 26, 8, 8, 128, True, 0),
+    "short_s5": (2, 5, 40, 8, 2, 64, True, 30),
+    "short_s3": (3, 3, 64, 4, 4, 16, True, 50),
+    "masked": (2, 96, 96, 4, 2, 16, True, -1000),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_kernel_matches_plain(cuda, name, dtype):
+    b, sq, sk, hq, hkv, d, causal, off = CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+    if off is None:   # per-row positions, as the engine's batched decode
+        off = torch.randint(0, sk, (b,), generator=g, device=cuda,
+                            dtype=torch.int32)
+    before = tflash.flash_fwd.launches
+    o, lse = tflash.flash_fwd(q, k, v, off, causal=causal)
+    torch.cuda.synchronize()
+    assert tflash.flash_fwd.launches == before + 1
+    ref_o, ref_lse = tflash.flash_fwd_reference(q, k, v, off, causal=causal)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, ref_o, atol=1e-4, rtol=0)
+    else:
+        torch.testing.assert_close(o.float(), ref_o.float(), atol=2e-2,
+                                   rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
