@@ -3,28 +3,43 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel from ``ray_tpu_torch/csrc`` (nvcc, sm_90a), then:
+Builds every CUDA kernel from ``ray_tpu_torch/csrc`` (nvcc, sm_90a, one
+process per source, all at once), then:
 
 1. environment: the card, its power limit, torch/CUDA versions, build time;
-2. each kernel against its plain PyTorch version on the card, in bf16 at
-   the shapes the serving path gives it (7b prefill, cached prefill,
-   batched decode with per-row positions) and at small cases (head_dim 16
-   and 64, unaligned s, GQA, non-causal, a fully masked offset, float32),
-   with its time, the plain version's time, torch SDPA's time as a
-   yardstick, and the least time the card could take (FLOPs at 989 TFLOP/s
-   bf16 or 67 TFLOP/s fp32, bytes at 3.35 TB/s);
-3. the 7b config cut to 2 layers: logits through the kernel
+2. the forward kernel against its plain PyTorch version on the card, in
+   bf16 at the shapes the serving path gives it (7b prefill, cached
+   prefill, batched decode with per-row positions) and at small cases
+   (head_dim 16 and 64, unaligned s, GQA, non-causal, a fully masked
+   offset, float32), with its time, the plain version's time, torch SDPA's
+   time as a yardstick, and the least time the card could take (FLOPs at
+   989 TFLOP/s bf16 or 67 TFLOP/s fp32, bytes at 3.35 TB/s);
+3. the two backward kernels (dq, dkv) against their plain versions the
+   same way, at the 1b train step's shape (b 4, s 2048, 32/4 heads, d 64),
+   at 7b's d 128 and at small cases, with torch SDPA's backward as the
+   yardstick at the two training shapes;
+4. the 7b config cut to 2 layers: logits through the kernel
    (``attn_impl="flash"``) against plain-PyTorch attention (``"xla"``);
-4. serving: the 7b preset at full width and 32 layers with random bf16
+5. the 1b config cut to 2 layers: ``lm_loss`` and every gradient through
+   the kernels against plain-PyTorch attention;
+6. serving: the 7b preset at full width and 32 layers with random bf16
    weights from a seeded generator, behind ``ContinuousEngine`` (8 slots,
    max_len 1024, decode stride 8), answering 8 staggered streamed
-   requests. Kernel launch counts are zeroed just before and read just
-   after, and each request's first token is checked against ``generate``;
-5. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
+   requests, each request's first token checked against ``generate``;
+7. training: the 1b preset at full width and 22 layers, fp32 master
+   params from a seeded generator, bf16 compute, flash attention, remat,
+   8 AdamW steps on a fixed [4, 2049] token batch; finite and falling loss,
+   tokens/s, MFU, peak memory and a profiled step;
+8. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
+
+Each path (serve, train) zeroes every kernel's launch count just before
+it runs and reads them just after; a kernel of the path that was not
+launched fails the run.
 
 Every phase prints one JSON line (``--jsonl PATH`` also appends them to a
 file). Any failed check raises: the script then
-exits non-zero and never prints the last line. Without a CUDA device, or
+exits non-zero and never prints the last line. ``--only`` runs a subset
+of the phases and prints neither of the last two lines. Without a CUDA device, or
 without the ``ray_tpu_torch`` package beside it, it exits 2 and prints no
 result.
 """
@@ -54,6 +69,20 @@ TOL = {"bfloat16": (2e-2, 2e-2, 1e-3), "float32": (1e-4, 0.0, 1e-4)}
 # 2-layer 7b logits, kernel vs plain attention, both bf16: max |diff| over
 # max |logit| (a few bf16 ulps of relative error through two layers)
 LOGIT_REL_TOL = 2e-2
+# backward kernels vs plain versions: max |g - plain| over max |plain|, per
+# gradient. Both sum in fp32 in different orders and round each result to
+# the input dtype once: in bf16 that is at most one ulp (2**-8 = 3.9e-3 of
+# the element); in fp32 only the order of up to sk * group terms differs.
+BWD_REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# 2-layer 1b gradients, flash vs plain attention, bf16 compute: max |diff|
+# over max |grad| per leaf. The plain path rounds its softmax weights and
+# its dp product to bf16 inside autograd, the kernels keep p, dp and ds in
+# fp32: bf16 rounding (3.9e-3 a step) through a few chained products.
+GRAD_REL_TOL = 5e-2
+# first loss of the 1b train run: ln(32000) = 10.37 plus sigma^2 / 2 = 0.5
+# for the unit-variance logits of a random head on rms-normed hiddens
+FIRST_LOSS_MARGIN = 1.0
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
 
 SERVE_PROMPT_LENS = (64, 512, 127, 384, 97, 250, 448, 190)
 SERVE_NEW_TOKENS = 32
@@ -127,6 +156,7 @@ KERNEL_CASES = {
     "decode_7b_b8": (8, 1, 1024, 32, 32, 128, True, None, "bfloat16"),
     "decode_7b_b1": (1, 1, 1024, 32, 32, 128, True, 700, "bfloat16"),
     "gqa_1b_d64": (1, 256, 256, 32, 4, 64, True, 0, "bfloat16"),
+    "train_1b_d64_gqa": (4, 2048, 2048, 32, 4, 64, True, 0, "bfloat16"),
     "debug_d16_gqa": (2, 96, 96, 4, 2, 16, True, 0, "bfloat16"),
     "unaligned_s77_d64": (2, 77, 77, 4, 2, 64, True, 0, "bfloat16"),
     "noncausal_d128": (1, 200, 200, 8, 8, 128, False, 0, "bfloat16"),
@@ -140,7 +170,10 @@ KERNEL_CASES = {
 }
 HEADLINE_CASE = "decode_7b_b8"   # the launch the serving path makes most
 LIBRARY_CASES = ("prefill_7b", "cached_prefill_7b", "decode_7b_b8",
-                 "decode_7b_b1")
+                 "decode_7b_b1", "train_1b_d64_gqa")
+# plain versions that hold GBs of fp32 scores: timed eagerly (device-bound
+# there), not captured five times into one CUDA graph
+EAGER_PLAIN_CASES = ("train_1b_d64_gqa", "train_7b_d128")
 
 
 def work(torch, b, sq, sk, hq, hkv, d, causal, offs, dtype):
@@ -193,8 +226,11 @@ def kernel_phase(torch, flash):
         kernel = lambda: flash.flash_fwd(q, k, v, offs, causal=causal)
         kernel_ms = device_ms(torch, kernel, iters)
         eager_ms = time_ms(torch, kernel, iters)
-        plain_ms = device_ms(torch, lambda: flash.flash_fwd_reference(
-            q, k, v, offs, causal=causal), 5)
+        plain = lambda: flash.flash_fwd_reference(q, k, v, offs,
+                                                  causal=causal)
+        plain_ms = (time_ms(torch, plain, 3, warmup=1)
+                    if name in EAGER_PLAIN_CASES else
+                    device_ms(torch, plain, 5))
         library_ms = None
         if name in LIBRARY_CASES:
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -203,7 +239,7 @@ def kernel_phase(torch, flash):
                     >= torch.arange(sk, device=DEV)[None, None, None, :])
             library_ms = device_ms(
                 torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask), iters)
+                    qt, kt, vt, attn_mask=mask, enable_gqa=hq != hkv), iters)
         flops, nbytes = work(torch, b, sq, sk, hq, hkv, d, causal, offs,
                              dtype)
         t_flops = flops / PEAK_FLOPS[dt] * 1e3
@@ -227,6 +263,161 @@ def kernel_phase(torch, flash):
 
 
 # ------------------------------------------------------------ phase 3
+
+# name: (b, sq, sk, hq, hkv, d, causal, offset, dtype); a list offset gives
+# each batch row its own position.
+BWD_CASES = {
+    "train_1b_d64_gqa": (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 4, 64, True,
+                         0, "bfloat16"),
+    "train_7b_d128": (1, 2048, 2048, 32, 32, 128, True, 0, "bfloat16"),
+    "unaligned_s77_d64": (2, 77, 77, 4, 2, 64, True, 0, "bfloat16"),
+    "noncausal_d128": (1, 200, 200, 8, 8, 128, False, 0, "bfloat16"),
+    "debug_d16_gqa": (2, 96, 96, 4, 2, 16, True, 0, "bfloat16"),
+    "offset40_d64": (2, 96, 96, 4, 2, 64, True, 40, "bfloat16"),
+    "sq40_sk100_offset60_d64": (2, 40, 100, 8, 2, 64, True, 60, "bfloat16"),
+    "masked_offset_-1000": (2, 96, 96, 4, 2, 16, True, -1000, "bfloat16"),
+    "per_row_offsets_d64": (3, 64, 64, 8, 2, 64, True, [0, 17, -5],
+                            "bfloat16"),
+    "fp32_d16": (2, 96, 96, 4, 2, 16, True, 0, "float32"),
+    "fp32_d128": (1, 130, 130, 4, 2, 128, True, 0, "float32"),
+}
+BWD_HEADLINE_CASE = "train_1b_d64_gqa"   # the shape the train path gives
+BWD_LIBRARY_CASES = ("train_1b_d64_gqa", "train_7b_d128")
+
+
+def bwd_work(torch, b, sq, sk, hq, hkv, d, causal, offs, dtype):
+    """(pairs, bytes) of the backward on this run's inputs: visible (query,
+    key) pairs over all q heads, and the bytes of each input read once and
+    each output written once, per kernel and for the whole backward."""
+    es = torch.finfo(dtype).bits // 8
+    if causal:
+        rows = torch.arange(sq, device=offs.device)[None, :] + offs[:, None]
+        vis = (rows + 1).clamp(min=0, max=sk)
+    else:
+        vis = torch.full((b, sq), sk, device=offs.device)
+    pairs = int(vis.sum()) * hq
+    keys = int(vis.amax(dim=1).sum())          # keys some row sees
+    qrow = b * sq * hq * d * es                # q, o, do, dq: one each
+    kv = keys * hkv * d * es                   # k or v as read
+    kv_out = b * sk * hkv * d * es             # dk or dv as written
+    row_f32 = b * hq * sq * 4                  # lse, delta
+    return pairs, {
+        "dq": 3 * qrow + 2 * kv + row_f32 + qrow + row_f32,
+        "dkv": 2 * qrow + 2 * kv + 2 * row_f32 + 2 * kv_out,
+        "bwd": 3 * qrow + 2 * kv + row_f32 + qrow + 2 * kv_out,
+    }
+
+
+def bwd_kernel_phase(torch, flash):
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    results = {}
+    g = torch.Generator(device=DEV).manual_seed(4321)
+    for name, (b, sq, sk, hq, hkv, d, causal, off, dt) in BWD_CASES.items():
+        dtype = getattr(torch, dt)
+        rnd = lambda *shape: torch.randn(shape, generator=g,
+                                         device=DEV).to(dtype)
+        q, k, v = rnd(b, sq, hq, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d)
+        do = rnd(b, sq, hq, d)
+        offs = (torch.tensor(off, dtype=torch.int32, device=DEV)
+                if isinstance(off, list) else
+                torch.full((b,), off, dtype=torch.int32, device=DEV))
+        kw = dict(causal=causal)
+        o, lse = flash.flash_fwd(q, k, v, offs, **kw)
+        dq, delta = flash.flash_dq(q, k, v, o, lse, do, offs, **kw)
+        dk, dv = flash.flash_dkv(q, k, v, lse, delta, do, offs, **kw)
+        rdq, rdelta = flash.flash_dq_reference(q, k, v, o, lse, do, offs,
+                                               **kw)
+        rdk, rdv = flash.flash_dkv_reference(q, k, v, lse, rdelta, do, offs,
+                                             **kw)
+        torch.cuda.synchronize()
+        rel = {}
+        for gname, got, want in (("dq", dq, rdq), ("dk", dk, rdk),
+                                 ("dv", dv, rdv)):
+            scale = float(want.float().abs().max())
+            diff = float((got.float() - want.float()).abs().max())
+            rel[gname] = diff / scale if scale else diff
+        err_delta = float((delta - rdelta).abs().max())
+        tol = BWD_REL_TOL[dt]
+        ok = (all(r <= tol for r in rel.values())
+              and all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv)))
+        if off == -1000:
+            ok = ok and all(bool((x == 0).all()) for x in (dq, dk, dv))
+        big = name in EAGER_PLAIN_CASES
+        iters = 10 if big else 20
+        run_dq = lambda: flash.flash_dq(q, k, v, o, lse, do, offs, **kw)
+        run_dkv = lambda: flash.flash_dkv(q, k, v, lse, delta, do, offs, **kw)
+        ms = {"dq": device_ms(torch, run_dq, iters),
+              "dkv": device_ms(torch, run_dkv, iters)}
+        eager_ms = {"dq": time_ms(torch, run_dq, iters),
+                    "dkv": time_ms(torch, run_dkv, iters)}
+        plain_dq = lambda: flash.flash_dq_reference(q, k, v, o, lse, do,
+                                                    offs, **kw)
+        plain_dkv = lambda: flash.flash_dkv_reference(q, k, v, lse, rdelta,
+                                                      do, offs, **kw)
+        timer = ((lambda fn: time_ms(torch, fn, 3, warmup=1)) if big else
+                 (lambda fn: device_ms(torch, fn, 5)))
+        plain_ms = {"dq": timer(plain_dq), "dkv": timer(plain_dkv)}
+        library_ms = library_eager_ms = None
+        if name in BWD_LIBRARY_CASES:
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=hq != hkv)
+            dot = do.transpose(1, 2)
+            lib = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                              retain_graph=True)
+            library_eager_ms = time_ms(torch, lib, iters)
+            # autograd's backward does not capture into a graph from here:
+            # its device time is the sum of the kernels it launches
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    lib()
+                torch.cuda.synchronize()
+            library_ms = sum(device_kernel_ms(torch, prof,
+                                              iters).values()) or None
+            del qt, kt, vt, out
+        pairs, nbytes = bwd_work(torch, b, sq, sk, hq, hkv, d, causal, offs,
+                                 dtype)
+        bounds = {}
+        for part, per_pair in (("dq", 6), ("dkv", 8), ("bwd", 10)):
+            t_flops = per_pair * d * pairs / PEAK_FLOPS[dt] * 1e3
+            t_bytes = nbytes[part] / HBM_BYTES_PER_S * 1e3
+            bounds[part] = {"bound_ms": max(t_flops, t_bytes),
+                            "bound_by": ("operations" if t_flops > t_bytes
+                                         else "bytes"),
+                            "flops": per_pair * d * pairs,
+                            "bytes": nbytes[part]}
+        rec = {"phase": "bwd_kernel", "case": name,
+               "shape": {"b": b, "sq": sq, "sk": sk, "hq": hq, "hkv": hkv,
+                         "d": d, "causal": causal,
+                         "offsets": offs.tolist(), "dtype": dt},
+               "rel_err": rel, "rel_tol": tol,
+               "max_abs_err_delta": err_delta,
+               "max_abs_err": max(float((x.float() - y.float()).abs().max())
+                                  for x, y in ((dq, rdq), (dk, rdk),
+                                               (dv, rdv))),
+               "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+               "plain_timer": "eager" if big else "graph",
+               "library_ms": library_ms, "library_eager_ms": library_eager_ms,
+               "library": "SDPA backward (dq, dk, dv), kernel device time"
+               if library_ms is not None else None,
+               "bound": bounds, "pairs": pairs,
+               "kernel_flops": 14 * d * pairs,
+               "tflops_per_s": {"dq": 6 * d * pairs / ms["dq"] / 1e9,
+                                "dkv": 8 * d * pairs / ms["dkv"] / 1e9},
+               "passed": ok}
+        emit(rec)
+        results[name] = rec
+        check(ok, f"flash backward {name}: rel err {rel} (tol {tol})")
+        del q, k, v, do, o, lse, dq, dk, dv, rdq, rdk, rdv, delta, rdelta
+        torch.cuda.empty_cache()
+    return results
+
+
+# ------------------------------------------------------------ phase 4
 
 def integration_phase(torch, tllama):
     base = dataclasses.replace(tllama.PRESETS["7b"], n_layers=2)
@@ -258,7 +449,50 @@ def integration_phase(torch, tllama):
     torch.cuda.empty_cache()
 
 
-# ------------------------------------------------------------ phase 4
+# ------------------------------------------------------------ phase 5
+
+def grad_check_phase(torch, tllama, tts):
+    """The 1b config cut to 2 layers, fp32 masters, bf16 compute: lm_loss
+    and every gradient through the flash kernels against plain-PyTorch
+    attention, on the train phase's batch shape."""
+    base = dataclasses.replace(tllama.PRESETS["1b"], n_layers=2)
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    params = tllama.init_params(base, generator=gen, device=DEV,
+                                dtype=torch.float32)
+    tokens = torch.randint(0, base.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           device=DEV, generator=gen)
+    leaves = tts._leaves(params)
+    out = {}
+    for impl in ("flash", "xla"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        loss = tllama.lm_loss(params, {"tokens": tokens}, cfg)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        for t in leaves.values():
+            t.requires_grad_(False)
+        out[impl] = (float(loss), dict(zip(leaves, grads)))
+    torch.cuda.synchronize()
+    rel = {}
+    for name, ref in out["xla"][1].items():
+        got = out["flash"][1][name]
+        rel[name] = float((got - ref).abs().max() / ref.abs().max())
+    finite = all(bool(torch.isfinite(gr).all())
+                 for gr in out["flash"][1].values())
+    worst = max(rel.values())
+    emit({"phase": "grad_check", "config": "1b, n_layers=2, fp32 params, "
+                                           "bf16 compute",
+          "tokens": list(tokens.shape), "loss_flash": out["flash"][0],
+          "loss_xla": out["xla"][0], "rel_diff_by_leaf": rel,
+          "rel_tol": GRAD_REL_TOL, "finite": finite})
+    check(finite and worst <= GRAD_REL_TOL,
+          f"2-layer 1b grads: flash vs plain rel diff {worst} > "
+          f"{GRAD_REL_TOL}")
+    del params, out
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ phase 6
 
 def serve_phase(torch, np, tllama, TG, ContinuousEngine, flash):
     cfg = dataclasses.replace(tllama.PRESETS["7b"], attn_impl="flash")
@@ -273,7 +507,7 @@ def serve_phase(torch, np, tllama, TG, ContinuousEngine, flash):
                for s in SERVE_PROMPT_LENS]
     torch.cuda.reset_peak_memory_stats()
 
-    flash.flash_fwd.launches = 0
+    zero_launches(flash)
     t_start = time.perf_counter()
     eng = ContinuousEngine(params, cfg, max_slots=8, max_len=1024,
                            decode_stride=8, device=DEV)
@@ -302,7 +536,7 @@ def serve_phase(torch, np, tllama, TG, ContinuousEngine, flash):
         th.join(timeout=900)
     stats = eng.stats()
     eng.shutdown()
-    launches = flash.flash_fwd.launches
+    launches = read_launches(flash)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     check(not any(th.is_alive() for th in threads) and
@@ -317,8 +551,8 @@ def serve_phase(torch, np, tllama, TG, ContinuousEngine, flash):
               f"in-vocab")
     prefills = stats["admitted"]
     want_launches = cfg.n_layers * (prefills + stats["decode_steps"])
-    check(launches >= want_launches and launches > 0,
-          f"flash_fwd launched {launches} times, the path made "
+    check(launches["flash_fwd"] >= want_launches and want_launches > 0,
+          f"flash_fwd launched {launches['flash_fwd']} times, the path made "
           f"{want_launches} attention calls")
 
     ttft = [stamps[i][0] - t_submit[i] for i in range(len(prompts))]
@@ -345,13 +579,15 @@ def serve_phase(torch, np, tllama, TG, ContinuousEngine, flash):
                                   "first first-token to last token",
           "serve_wall_s": last_any - t_start,
           "peak_mem_bytes": peak, "engine_stats": stats,
-          "flash_fwd_launches": launches,
+          "launches": launches,
           "attention_calls_expected": want_launches,
           "first_token_match": f"{first_match}/{len(prompts)}",
           "token_match_rate_vs_generate": seq_match / total})
     check(first_match == len(prompts),
           f"first tokens match generate for {first_match}/{len(prompts)}")
     step_breakdown(torch, params, cfg, prompts)
+    del params
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -383,12 +619,7 @@ def step_breakdown(torch, params, cfg, prompts):
                              ProfilerActivity.CUDA]) as prof:
         b.step_many(k)
         torch.cuda.synchronize()
-    # device-side events only: a CPU op's self device time repeats the
-    # kernels it launched
-    cuda = torch.autograd.DeviceType.CUDA
-    per_kernel = {e.key: e.self_device_time_total / 1e3 / k
-                  for e in prof.key_averages()
-                  if e.device_type == cuda and e.self_device_time_total > 0}
+    per_kernel = device_kernel_ms(torch, prof, k)
     busy = sum(per_kernel.values())
     flash_ms = sum(t for name, t in per_kernel.items()
                    if "flash_fwd_kernel" in name)
@@ -404,12 +635,160 @@ def step_breakdown(torch, params, cfg, prompts):
           "top_kernels_ms_per_step": [[n[:80], t] for n, t in top]})
 
 
+# ------------------------------------------------------------ phase 7
+
+LAUNCH_COUNTERS = ("flash_fwd", "flash_dq", "flash_dkv", "flash_bwd")
+
+
+def zero_launches(flash):
+    for name in LAUNCH_COUNTERS:
+        getattr(flash, name).launches = 0
+
+
+def read_launches(flash):
+    return {name: getattr(flash, name).launches for name in LAUNCH_COUNTERS}
+
+
+def device_kernel_ms(torch, prof, per):
+    """Device time by kernel name, divided by ``per``: device-side events
+    only, since a CPU op's self device time repeats the kernels it
+    launched."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return {e.key: e.self_device_time_total / 1e3 / per
+            for e in prof.key_averages()
+            if e.device_type == cuda and e.self_device_time_total > 0}
+
+
+def train_phase(torch, np, tllama, tts, tflops, flash):
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = dataclasses.replace(tllama.PRESETS["1b"], attn_impl="flash")
+    opt = tts.default_optimizer(lr=3e-4, warmup_steps=2, total_steps=100)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    t0 = time.perf_counter()
+    params, state = tts.init_state(cfg, opt, generator=gen, device=DEV)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           generator=gen, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = {"tokens": tokens}
+    step = tts.make_train_step(cfg, opt, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+
+    alloc_keys = ("num_device_alloc", "num_device_free", "num_alloc_retries")
+    alloc_now = lambda: [torch.cuda.memory_stats().get(k, 0)
+                         for k in alloc_keys]
+    zero_launches(flash)
+    losses, norms, step_ms, events, allocs = [], [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        a0 = alloc_now()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        params, state, m = step(params, state, batch)
+        ev[1].record()
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        events.append(ev)
+        allocs.append([b - a for a, b in zip(a0, alloc_now())])
+    launches = read_launches(flash)
+    # first event to last on the device's clock: device work plus the gaps
+    # where it waited for the host
+    step_device_ms = [a.elapsed_time(b) for a, b in events]
+    peak = torch.cuda.max_memory_allocated()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, state, batch)
+        torch.cuda.synchronize()
+    per_kernel = device_kernel_ms(torch, prof, 1)
+    busy = sum(per_kernel.values())
+    flash_ms = {kind: sum(t for n, t in per_kernel.items() if kind in n)
+                for kind in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                             "flash_bwd_dkv_kernel")}
+    gemm_ms = sum(t for n, t in per_kernel.items()
+                  if "gemm" in n.lower() or "nvjet" in n.lower())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
+
+    steady = step_ms[2:]
+    med_ms = float(np.median(steady))
+    tokens_per_step, seq = tts._batch_tokens(batch)
+    step_flops = tokens_per_step * tflops.train_flops_per_token(cfg, seq)
+    emit({"phase": "train", "config": "1b, 22 layers, fp32 params, bf16 "
+                                      "compute, attn flash, remat",
+          "optimizer": dataclasses.asdict(opt),
+          "batch": [TRAIN_BATCH, TRAIN_SEQ + 1],
+          "init_state_s": init_s, "losses": losses, "grad_norms": norms,
+          "step_ms": step_ms, "step_event_ms": step_device_ms,
+          "step_allocator": {k: [a[i] for a in allocs]
+                             for i, k in enumerate(alloc_keys)},
+          "median_step_ms_steps_3_to_8": med_ms,
+          "tokens_per_s": tokens_per_step * 1e3 / med_ms,
+          "step_flops": step_flops,
+          "mfu": tflops.mfu(step_flops, med_ms / 1e3),
+          "mfu_peak": "989e12 bf16 dense (H100 SXM)",
+          "peak_mem_bytes": peak, "launches": launches,
+          "profiled_step": {
+              "device_busy_ms": busy if busy else "not measured",
+              "device_idle_share": 1 - busy / med_ms if busy else
+              "not measured",
+              "flash_ms": flash_ms,
+              "flash_share_of_busy": (sum(flash_ms.values()) / busy
+                                      if busy else "not measured"),
+              "gemm_ms": gemm_ms,
+              "top_kernels_ms": [[n[:80], t] for n, t in top]}})
+    n_layers = cfg.n_layers
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"non-finite loss or grad norm: {losses} {norms}")
+    check(abs(losses[0] - np.log(cfg.vocab_size)) <= FIRST_LOSS_MARGIN,
+          f"first loss {losses[0]} not within {FIRST_LOSS_MARGIN} of "
+          f"ln {cfg.vocab_size}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for name, per_step in (("flash_fwd", 2 * n_layers), ("flash_dq", n_layers),
+                           ("flash_dkv", n_layers), ("flash_bwd", n_layers)):
+        check(launches[name] >= per_step * TRAIN_STEPS,
+              f"{name} launched {launches[name]} times in {TRAIN_STEPS} "
+              f"steps, want >= {per_step} a step")
+    del params, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+PHASES = ("kernel", "bwd", "integration", "grad", "serve", "train")
+
+
+def kernel_entry(name, source, replaces, launches, head, part=None):
+    """One entry of the ``kernels`` line from a headline case record."""
+    pick = (lambda key: head[key]) if part is None else \
+        (lambda key: head[key][part])
+    bound = head["bound"][part] if part else head
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(c[name] for c in launches.values()),
+            "launches_by_path": {path: c[name]
+                                 for path, c in launches.items()},
+            "max_abs_err": head["max_abs_err_o"] if part is None else
+            head["max_abs_err"],
+            "ms": pick("ms"), "plain_ms": pick("plain_ms"),
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": head["library_ms"]}
+
+
 def main(argv=None) -> int:
     global JSONL
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--jsonl", type=Path, default=None,
                     help="also append every phase line to this file")
-    JSONL = ap.parse_args(argv).jsonl
+    ap.add_argument("--only", default=None,
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + "; prints no kernels line and no result line")
+    args = ap.parse_args(argv)
+    JSONL = args.jsonl
+    only = set(PHASES if args.only is None else args.only.split(","))
+    if only - set(PHASES):
+        ap.error(f"unknown phases {sorted(only - set(PHASES))}")
     import numpy as np
     import torch
 
@@ -421,6 +800,8 @@ def main(argv=None) -> int:
         from ray_tpu_torch.models import llama as tllama
         from ray_tpu_torch.models.serving import ContinuousEngine
         from ray_tpu_torch.ops import _build, flash
+        from ray_tpu_torch.parallel import train_step as tts
+        from ray_tpu_torch.util import flops as tflops
     except ImportError as e:
         print(f"chip_smoke: the ray_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
@@ -444,30 +825,57 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0],
           "build_s": build_s, "build_wall_s": time.perf_counter() - t0,
-          "ptxas": {n: [ln for ln in log.splitlines() if "registers" in ln]
+          "ptxas": {n: [ln for ln in log.splitlines()
+                        if "registers" in ln or "spill" in ln]
                     for n, log in _build.build_log.items()}})
 
-    cases = kernel_phase(torch, flash)
-    integration_phase(torch, tllama)
-    launches = serve_phase(torch, np, tllama, TG, ContinuousEngine, flash)
+    cases = kernel_phase(torch, flash) if "kernel" in only else None
+    bwd_cases = bwd_kernel_phase(torch, flash) if "bwd" in only else None
+    if "integration" in only:
+        integration_phase(torch, tllama)
+    if "grad" in only:
+        grad_check_phase(torch, tllama, tts)
+    launches = {}
+    if "serve" in only:
+        launches["serve"] = serve_phase(torch, np, tllama, TG,
+                                        ContinuousEngine, flash)
+    if "train" in only:
+        launches["train"] = train_phase(torch, np, tllama, tts, tflops,
+                                        flash)
+    if args.only is not None:
+        print(json.dumps({"partial_run": sorted(only)}), flush=True)
+        return 0
 
     head = cases[HEADLINE_CASE]
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "ray_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "ray_tpu/ops/pallas/flash.py:41",
-        "launches": launches,
-        "max_abs_err": head["max_abs_err_o"],
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "headline_case": HEADLINE_CASE,
-        "passed": all(c["passed"] for c in cases.values()),
-        "cases": {n: {key: c[key] for key in (
-            "ms", "eager_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by",
-            "max_abs_err_o", "max_abs_err_lse")}
-            for n, c in cases.items()}}]}), flush=True)
+    fwd = kernel_entry("flash_fwd", "ray_tpu_torch/csrc/flash_fwd.cu",
+                       "ray_tpu/ops/pallas/flash.py:41", launches, head)
+    fwd.update({"headline_case": HEADLINE_CASE,
+                "passed": all(c["passed"] for c in cases.values()),
+                "cases": {n: {key: c[key] for key in (
+                    "ms", "eager_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "max_abs_err_o", "max_abs_err_lse")}
+                    for n, c in cases.items()}})
+    bhead = bwd_cases[BWD_HEADLINE_CASE]
+    entries = [fwd]
+    for name, part, line in (("flash_dq", "dq", 138), ("flash_dkv", "dkv", 174)):
+        e = kernel_entry(name, "ray_tpu_torch/csrc/flash_bwd.cu",
+                         f"ray_tpu/ops/pallas/flash.py:{line}", launches,
+                         bhead, part)
+        e.update({"headline_case": BWD_HEADLINE_CASE,
+                  "library_scope": "SDPA backward: dq, dk and dv together",
+                  "passed": all(c["passed"] for c in bwd_cases.values()),
+                  "cases": {n: {"ms": c["ms"][part],
+                                "eager_ms": c["eager_ms"][part],
+                                "plain_ms": c["plain_ms"][part],
+                                "bound_ms": c["bound"][part]["bound_ms"],
+                                "bound_by": c["bound"][part]["bound_by"],
+                                "library_ms": c["library_ms"],
+                                "rel_err": c["rel_err"]}
+                            for n, c in bwd_cases.items()}})
+        entries.append(e)
+    for e in entries:
+        check(e["launches"] > 0, f"{e['name']} never launched on the path")
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

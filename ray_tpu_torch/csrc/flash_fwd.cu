@@ -31,18 +31,20 @@
 // tiles of 32 keys (one key per lane for Q.K, one head-dim slice per lane
 // for P.V), so warps never wait for one another inside the K loop.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1073741824.0f;  // -2**30, as in ops/attention.py
+using rtt::Elem;
+using rtt::FULL;
+using rtt::NEG_INF;
+using rtt::warp_max;
+using rtt::warp_sum;
+
 constexpr int WARPS = 4;
 constexpr int ROWS = 4;             // query rows per warp
 constexpr int BQ = WARPS * ROWS;    // query rows per block
 constexpr int BK = 32;              // keys per tile: one per lane
-constexpr unsigned FULL = 0xffffffffu;
 
 struct Params {
   const void* q;
@@ -57,33 +59,6 @@ struct Params {
   long long v_sb, v_ss, v_sh;
   float scale;
   int causal;
-};
-
-// A 32-bit word holds 1 float or 2 bf16 (element 2i in the low half).
-template <typename T> struct Elem;
-
-template <> struct Elem<float> {
-  static constexpr int PER_WORD = 1;
-  __device__ static void unpack(uint32_t w, float* out) {
-    out[0] = __uint_as_float(w);
-  }
-  __device__ static float round(float x) { return x; }
-  __device__ static uint32_t pack(const float* x) { return __float_as_uint(x[0]); }
-};
-
-template <> struct Elem<__nv_bfloat16> {
-  static constexpr int PER_WORD = 2;
-  __device__ static void unpack(uint32_t w, float* out) {
-    out[0] = __uint_as_float(w << 16);
-    out[1] = __uint_as_float(w & 0xffff0000u);
-  }
-  __device__ static float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-  __device__ static uint32_t pack(const float* x) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(x[0], x[1]);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
 };
 
 template <typename T, int D>
@@ -105,18 +80,6 @@ struct Shape {
   static_assert(K_WORDS % 4 == 0 && WARP_WORDS % 4 == 0, "16-byte tiles");
   static_assert(WARPS * ROWS * (D + 2) <= WARPS * WARP_WORDS, "merge fits");
 };
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
-  return x;
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -355,19 +318,10 @@ flash_fwd_kernel(const Params p) {
 template <typename T, int D>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   using S = Shape<T, D>;
-  // above 48 KB, dynamic shared memory must be opted into, per device
   static bool opted_in[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = rtt::opt_in_smem(flash_fwd_kernel<T, D>, S::BYTES,
+                                     opted_in);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (!opted_in[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               S::BYTES);
-    if (err != cudaSuccess) return err;
-    opted_in[dev] = true;
-  }
   const dim3 grid(p.b * p.hq, (p.sq + BQ - 1) / BQ);
   flash_fwd_kernel<T, D><<<grid, WARPS * 32, S::BYTES, stream>>>(p);
   return cudaGetLastError();

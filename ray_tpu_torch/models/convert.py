@@ -41,3 +41,15 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, *,
         # a copy: a numpy view of a JAX buffer is read-only
         flat[name] = torch.tensor(arr).to(device=device, dtype=dtype)
     return _unflatten(flat)
+
+
+def params_to_numpy(params: Params) -> dict:
+    """The inverse of ``params_from_jax``: the port's params as a pytree of
+    float32 numpy arrays shaped like JAX's (``{"embed", "layers": {...},
+    "final_norm", ["lm_head"]}``), copied to the host."""
+    def host(t: torch.Tensor) -> np.ndarray:
+        return t.detach().to(device="cpu", dtype=torch.float32).numpy()
+
+    return {name: ({k: host(w) for k, w in node.items()}
+                   if isinstance(node, dict) else host(node))
+            for name, node in params.items()}

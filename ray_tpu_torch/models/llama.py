@@ -3,15 +3,24 @@
 Parameters are a plain dict shaped like the JAX pytree: layer weights are
 stacked on a leading [n_layers] axis and keep JAX's ``x @ W`` orientation
 (``wq`` is [d, hq*hd], ``lm_head`` is [d, V]); with ``tie_embeddings`` the
-head is ``embed.T``. The JAX package keeps fp32 params and casts them at
-every use; here they are stored in the compute dtype, cast once when they
-are made or loaded (``init_params``, ``convert.params_from_jax``): the
-values are the same, and casting 27 GB of 7b weights on every decode step
-would cost more than the step.
+head is ``embed.T``. Every param is cast to the compute dtype where it is
+used, as JAX's ``.astype(cdt)``; ``Tensor.to`` returns the tensor itself
+when the dtype already matches. So serving stores its params in the
+compute dtype (``init_params``' default, ``convert.params_from_jax``) and
+pays no cast, while training keeps fp32 masters (``dtype=torch.float32``)
+and casts at each use, as the JAX trainer does.
 
 Attention backends: ``attn_impl="xla"`` runs the plain PyTorch ``mha``;
-``"flash"`` runs the CUDA flash kernel (its plain version on the CPU).
-The pipeline, ring/ulysses, loss and 1f1b branches are not ported yet.
+``"flash"`` runs the CUDA flash kernels (their plain versions on the CPU),
+forward and backward.
+
+Training: ``lm_loss`` and ``chunked_ce``. With ``cfg.remat`` and grad
+enabled, each decoder block runs under ``torch.utils.checkpoint``
+(non-reentrant): it keeps only the block's input and recomputes the rest
+in backward. JAX's ``jax.checkpoint`` with
+``dots_with_no_batch_dims_saveable`` keeps the matmul outputs too: a
+different save set, the same values. The pipeline, ring/ulysses and 1f1b
+branches are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import mha
@@ -45,7 +55,12 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     compute_dtype: torch.dtype = torch.bfloat16
-    # "xla" (plain PyTorch mha, the reference) or "flash" (CUDA kernel)
+    remat: bool = True
+    # Cross-entropy sequence chunk: >0 computes the loss in [B, chunk, V]
+    # slices, each recomputed in backward, so the full fp32 logits never
+    # materialize at once
+    loss_chunk: int = 0
+    # "xla" (plain PyTorch mha, the reference) or "flash" (CUDA kernels)
     attn_impl: str = "xla"
 
     @property
@@ -141,7 +156,8 @@ def layer_params(params: Params, i: int) -> Dict[str, torch.Tensor]:
 
 
 def lm_head(params: Params, cfg: LlamaConfig) -> torch.Tensor:
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return head.to(cfg.compute_dtype)
 
 
 def attend(cfg: LlamaConfig, q: torch.Tensor, k: torch.Tensor,
@@ -170,22 +186,33 @@ def attention_half(cfg: LlamaConfig, x: torch.Tensor,
     """Pre-norm attention + residual."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h = rmsnorm(x, layer["attn_norm"], cfg.norm_eps)
-    q = apply_rope((h @ layer["wq"]).reshape(b, s, hq, hd), sin, cos)
-    k = apply_rope((h @ layer["wk"]).reshape(b, s, hkv, hd), sin, cos)
-    v = (h @ layer["wv"]).reshape(b, s, hkv, hd)
+    cdt = cfg.compute_dtype
+    h = rmsnorm(x, layer["attn_norm"].to(cdt), cfg.norm_eps)
+    q = apply_rope((h @ layer["wq"].to(cdt)).reshape(b, s, hq, hd), sin, cos)
+    k = apply_rope((h @ layer["wk"].to(cdt)).reshape(b, s, hkv, hd), sin,
+                   cos)
+    v = (h @ layer["wv"].to(cdt)).reshape(b, s, hkv, hd)
     attn = attend(cfg, q, k, v, segment_ids=segment_ids)
-    return x + attn.reshape(b, s, hq * hd) @ layer["wo"]
+    return x + attn.reshape(b, s, hq * hd) @ layer["wo"].to(cdt)
 
 
 def ffn_half(cfg: LlamaConfig, x: torch.Tensor,
              layer: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Pre-norm SwiGLU MLP + residual — shared by the train and decode
     paths."""
-    h = rmsnorm(x, layer["mlp_norm"], cfg.norm_eps)
-    gate = F.silu(h @ layer["w_gate"])
-    up = h @ layer["w_up"]
-    return x + (gate * up) @ layer["w_down"]
+    cdt = cfg.compute_dtype
+    h = rmsnorm(x, layer["mlp_norm"].to(cdt), cfg.norm_eps)
+    gate = F.silu(h @ layer["w_gate"].to(cdt))
+    up = h @ layer["w_up"].to(cdt)
+    return x + (gate * up) @ layer["w_down"].to(cdt)
+
+
+def _block(cfg: LlamaConfig, x: torch.Tensor, layer: Dict[str, torch.Tensor],
+           sin: torch.Tensor, cos: torch.Tensor,
+           segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
+    """One decoder block: pre-norm attention + pre-norm SwiGLU MLP."""
+    x = attention_half(cfg, x, layer, sin, cos, segment_ids)
+    return ffn_half(cfg, x, layer)
 
 
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
@@ -193,14 +220,23 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [batch, seq] -> (final-norm hidden [batch, seq, d], head
     [d, V]), both in the compute dtype."""
-    x = params["embed"][tokens]
+    cdt = cfg.compute_dtype
+    # gather, then cast: the values of JAX's cast-then-gather
+    x = params["embed"][tokens].to(cdt)
     sin, cos = rope_angles(tokens.shape[1], cfg.head_dim, cfg.rope_theta,
-                           cfg.compute_dtype, x.device)
+                           cdt, x.device)
+    # unbind, not w[i]: one stack in backward instead of a full-size zero
+    # gradient per layer
+    layers = {k: w.unbind(0) for k, w in params["layers"].items()}
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        layer = layer_params(params, i)
-        x = attention_half(cfg, x, layer, sin, cos, segment_ids)
-        x = ffn_half(cfg, x, layer)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        layer = {k: ws[i] for k, ws in layers.items()}
+        if remat:
+            x = checkpoint(_block, cfg, x, layer, sin, cos, segment_ids,
+                           use_reentrant=False)
+        else:
+            x = _block(cfg, x, layer, sin, cos, segment_ids)
+    x = rmsnorm(x, params["final_norm"].to(cdt), cfg.norm_eps)
     return x, lm_head(params, cfg)
 
 
@@ -209,3 +245,58 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     """tokens [batch, seq] -> logits [batch, seq, vocab] (fp32)."""
     x, head = forward_hidden(params, tokens, cfg, segment_ids)
     return (x @ head).float()
+
+
+def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: LlamaConfig) -> torch.Tensor:
+    """Next-token cross entropy (fp32 scalar); ``batch`` has tokens
+    [B, S+1] and optionally ``loss_mask`` [B, S] and ``segment_ids``
+    [B, S]. ``cfg.loss_chunk`` (dividing S, smaller than S) computes it in
+    sequence chunks (``chunked_ce``)."""
+    tokens = batch["tokens"]
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    x, head = forward_hidden(params, inputs, cfg, batch.get("segment_ids"))
+    return chunked_ce(x, head, targets, batch.get("loss_mask"),
+                      cfg.loss_chunk)
+
+
+def _nll(x: torch.Tensor, head: torch.Tensor,
+         targets: torch.Tensor) -> torch.Tensor:
+    logits = (x @ head).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+
+
+def _chunk_sums(x, head, targets, mask):
+    nll = _nll(x, head, targets)
+    return (nll * mask).sum(), mask.sum()
+
+
+def chunked_ce(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
+               mask: Optional[torch.Tensor], chunk: int) -> torch.Tensor:
+    """Cross entropy from final hiddens [B, S, d] and head [d, V].
+
+    With ``chunk`` dividing S (and smaller), each [B, chunk, V] slice of
+    fp32 logits is made, reduced and dropped, and recomputed in backward
+    under ``torch.utils.checkpoint`` (JAX's ``nothing_saveable`` scan), so
+    peak memory holds one slice instead of [B, S, V] and its gradient."""
+    S = targets.shape[1]
+    if chunk and S % chunk == 0 and S > chunk:
+        ones = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+        m = ones if mask is None else mask.float()
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        count = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c in range(0, S, chunk):
+            sl = slice(c, c + chunk)
+            args = (x[:, sl], head, targets[:, sl], m[:, sl])
+            if torch.is_grad_enabled():
+                s, n = checkpoint(_chunk_sums, *args, use_reentrant=False)
+            else:
+                s, n = _chunk_sums(*args)
+            total, count = total + s, count + n
+        return total / count.clamp(min=1)
+    nll = _nll(x, head, targets)
+    if mask is None:
+        return nll.mean()
+    return (nll * mask).sum() / mask.sum().clamp(min=1)

@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Tuple
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES: Tuple[str, ...] = ("flash_fwd",)
+SOURCES: Tuple[str, ...] = ("flash_fwd", "flash_bwd")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

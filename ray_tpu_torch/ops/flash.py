@@ -1,10 +1,12 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its plain
-PyTorch version.
+"""Flash attention: the hand-written CUDA kernels and their plain PyTorch
+versions.
 
-Port of ``ray_tpu/ops/pallas/flash.py``'s forward (``_fwd_kernel``, launched
-by ``_flash_fwd_bhsd``). The kernel is ``csrc/flash_fwd.cu``; its source
-note says what bounds it and what the design does about it. The wrappers
-keep the JAX layout: q, k, v are [batch, seq, heads, head_dim], ``lse`` is
+Port of ``ray_tpu/ops/pallas/flash.py``: the forward (``_fwd_kernel``,
+launched by ``_flash_fwd_bhsd``) is ``csrc/flash_fwd.cu``; the backward
+(``_dq_kernel`` and ``_dkv_kernel``, launched by ``_flash_bwd_bhsd``) is
+``csrc/flash_bwd.cu``. Each source note says what bounds the kernel and
+what its design does about it. The wrappers keep the JAX layout: q, k, v,
+o and do are [batch, seq, heads, head_dim], ``lse`` and ``delta`` are
 [batch, heads, seq].
 
 ``q_offset`` is the absolute position of q[0] relative to k[0]: an int, or
@@ -13,8 +15,10 @@ needs), on the device of q. It may be negative: a fully masked row gives
 ``o == 0`` and ``lse == NEG_INF``.
 
 For a CPU tensor the wrappers run the plain version; for a CUDA tensor
-they launch the kernel or raise. There is no backward yet (ROADMAP.md,
-Queue 2: ``_dq_kernel`` and ``_dkv_kernel``).
+they launch the kernel or raise. ``flash_attention`` is differentiable (a
+``torch.autograd.Function`` over ``flash_fwd`` and ``flash_bwd``);
+``flash_fwd`` and ``flash_attention_with_lse`` are forward-only, as JAX's
+``flash_attention_with_lse`` is.
 """
 
 from __future__ import annotations
@@ -30,8 +34,8 @@ from ray_tpu_torch.ops.attention import NEG_INF, causal_mask
 Offset = Union[int, torch.Tensor]
 HEAD_DIMS = (16, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_SQ = 65535 * 16    # grid.y holds one 16-row query tile per index
-_fns = None
+MAX_SQ = 65535 * 16    # grid.y holds one 16-row query (or key) tile per index
+_fns = {}              # library name -> (launch, error_string)
 
 
 def _offsets(q_offset: Offset, b: int, device: torch.device) -> torch.Tensor:
@@ -79,39 +83,69 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-def _kernel_fns():
-    """(launch, error_string) from the built library, typed once."""
-    global _fns
-    if _fns is None:
-        lib = _build.load("flash_fwd")
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.rtt_flash_fwd.argtypes = ([I, I] + [P] * 6 + [I] * 5 + [L] * 9
-                                      + [ctypes.c_float, I, P])
-        lib.rtt_flash_fwd.restype = I
-        lib.rtt_cuda_error_string.argtypes = [I]
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# each library's launch function and its argument types
+_LAUNCH = {
+    "flash_fwd": ("rtt_flash_fwd", [_I, _I] + [_P] * 6 + [_I] * 5 + [_L] * 9
+                  + [ctypes.c_float, _I, _P]),
+    "flash_bwd": ("rtt_flash_bwd", [_I, _I, _I] + [_P] * 11 + [_I] * 5
+                  + [_L] * 15 + [ctypes.c_float, _I, _P]),
+}
+
+
+def _kernel_fns(name: str):
+    """(launch, error_string) from the built library ``name``, typed
+    once."""
+    if name not in _fns:
+        lib = _build.load(name)
+        fn_name, argtypes = _LAUNCH[name]
+        launch = getattr(lib, fn_name)
+        launch.argtypes, launch.restype = argtypes, _I
+        lib.rtt_cuda_error_string.argtypes = [_I]
         lib.rtt_cuda_error_string.restype = ctypes.c_char_p
-        _fns = (lib.rtt_flash_fwd, lib.rtt_cuda_error_string)
-    return _fns
+        _fns[name] = (launch, lib.rtt_cuda_error_string)
+    return _fns[name]
 
 
-def _check_cuda_inputs(q, k, v) -> None:
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"flash_fwd takes float32 or bfloat16, got {q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"flash_fwd takes head_dim in {HEAD_DIMS}, got "
-                         f"{q.shape[-1]}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device != q.device:
-            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        if x.stride(-1) != 1:
-            raise ValueError(f"{name}'s head_dim must be contiguous")
-        # rows are read as 16-byte chunks
-        if x.data_ptr() % 16 or any((st * x.element_size()) % 16
-                                    for st in x.stride()[:-1]):
-            raise ValueError(f"{name} must be 16-byte aligned in every row")
+def _aligned(x: torch.Tensor) -> bool:
+    """Rows are read as 16-byte chunks: head_dim contiguous, every row
+    16-byte aligned."""
+    return x.stride(-1) == 1 and not (
+        x.data_ptr() % 16 or any((st * x.element_size()) % 16
+                                 for st in x.stride()[:-1]))
+
+
+def _check_cuda_inputs(**tensors: torch.Tensor) -> None:
+    """The kernels' contract on CUDA inputs, checked against the first."""
+    (first_name, first), *_ = tensors.items()
+    if first.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash attention takes float32 or bfloat16, got "
+                        f"{first.dtype}")
+    if first.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"flash attention takes head_dim in {HEAD_DIMS}, "
+                         f"got {first.shape[-1]}")
+    for name, x in tensors.items():
+        if x.dtype != first.dtype:
+            raise TypeError(f"{name} is {x.dtype}, {first_name} "
+                            f"{first.dtype}")
+        if x.device != first.device:
+            raise ValueError(f"{name} is on {x.device}, {first_name} on "
+                             f"{first.device}")
+        if not _aligned(x):
+            raise ValueError(f"{name} must have a contiguous head_dim and "
+                             f"16-byte aligned rows")
+
+
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be [batch, seq, heads, head_dim]")
+    if (k.shape != v.shape or k.shape[0] != q.shape[0]
+            or k.shape[3] != q.shape[3]):
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
+    if q.shape[2] % k.shape[2]:
+        raise ValueError(f"q heads {q.shape[2]} not divisible by kv heads "
+                         f"{k.shape[2]}")
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -120,27 +154,21 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ported ``_fwd_kernel``: (o [b,sq,hq,d] in q's dtype,
     lse [b,hq,sq] fp32). ``flash_fwd.launches`` counts kernel launches."""
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("q, k, v must be [batch, seq, heads, head_dim]")
+    _check_shapes(q, k, v)
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
-        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)} do not match")
-    if hq % hkv:
-        raise ValueError(f"q heads {hq} not divisible by kv heads {hkv}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise NotImplementedError(
-            "flash attention has no backward yet: see ROADMAP.md, Queue 2 "
-            "(_dq_kernel and _dkv_kernel, with the train step)")
+            "flash_fwd and flash_attention_with_lse are forward-only; "
+            "flash_attention is the differentiable form")
     scale = float(scale if scale is not None else d ** -0.5)
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, q_offset, causal=causal,
                                    scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd runs on cuda or cpu, got {q.device}")
-    _check_cuda_inputs(q, k, v)
+    _check_cuda_inputs(q=q, k=k, v=v)
     if sq > MAX_SQ:
         raise ValueError(f"flash_fwd takes at most {MAX_SQ} queries, got {sq}")
     offs = _offsets(q_offset, b, q.device)
@@ -150,7 +178,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o.zero_()
         lse.fill_(NEG_INF)
         return o, lse
-    launch, error_string = _kernel_fns()
+    launch, error_string = _kernel_fns("flash_fwd")
     # the C side launches on the calling thread's current device
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -169,11 +197,228 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_fwd.launches = 0
 
 
+def _p_ds(q, k, v, lse, do, delta, q_offset, causal, scale):
+    """(p, ds), each [b, hkv, group, sq, sk] fp32: the backward kernels'
+    arithmetic. p = exp(s - lse) where the key is visible and the row is
+    live (lse > NEG_INF/2), else 0; kept in fp32, not rounded to V's
+    dtype; ds = p (dp - delta) scale."""
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    group = hq // hkv
+    grouped = lambda x: x.reshape(b, sq, hkv, group, d).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", grouped(q), k.float()) * scale
+    lse = lse.reshape(b, hkv, group, sq, 1)
+    live = lse > NEG_INF / 2
+    if causal:
+        live = live & causal_mask(sq, sk, q_offset, q.device)[:, :, None]
+    p = torch.where(live, torch.exp(s - lse), 0.0)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", grouped(do), v.float())
+    ds = p * (dp - delta.reshape(b, hkv, group, sq, 1)) * scale
+    return p, ds
+
+
+def flash_dq_reference(q, k, v, o, lse, do, q_offset: Offset = 0, *,
+                       causal: bool = True, scale: Optional[float] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the dq kernel: (dq [b,sq,hq,d] in q's
+    dtype, delta [b,hq,sq] fp32), dq summed in fp32 and cast once."""
+    b, sq, hq, d = q.shape
+    scale = scale if scale is not None else d ** -0.5
+    # rowsum(o * do) in fp32 from o as stored: [b, hq, sq]
+    delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    _, ds = _p_ds(q, k, v, lse, do, delta, q_offset, causal, scale)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float())
+    return dq.reshape(b, sq, hq, d).to(q.dtype), delta
+
+
+def flash_dkv_reference(q, k, v, lse, delta, do, q_offset: Offset = 0, *,
+                        causal: bool = True, scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the dkv kernel: (dk, dv) [b,sk,hkv,d] in
+    k's and v's dtypes, summed in fp32 over the query rows and over the
+    GQA group of q heads that read each kv head, cast once."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    p, ds = _p_ds(q, k, v, lse, do, delta, q_offset, causal, scale)
+    grouped = lambda x: x.reshape(b, sq, hkv, hq // hkv, d).float()
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, grouped(do))
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, grouped(q))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_reference(q, k, v, o, lse, do, q_offset: Offset = 0, *,
+                        causal: bool = True, scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward: (dq, dk, dv). The TPU
+    kernels' arithmetic: s in fp32 scaled after the dot, p from the saved
+    lse (0 where masked or where lse <= NEG_INF/2) kept in fp32, delta =
+    rowsum(o * do) in fp32, dq/dk/dv summed in fp32 (dk, dv over the GQA
+    group too) and each cast once to its input's dtype."""
+    dq, delta = flash_dq_reference(q, k, v, o, lse, do, q_offset,
+                                   causal=causal, scale=scale)
+    dk, dv = flash_dkv_reference(q, k, v, lse, delta, do, q_offset,
+                                 causal=causal, scale=scale)
+    return dq, dk, dv
+
+
+def _bwd_checks(q, k, v, lse, do, scale) -> float:
+    """Shapes every backward wrapper takes; returns the scale."""
+    _check_shapes(q, k, v)
+    b, sq, hq, d = q.shape
+    if tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f"do {tuple(do.shape)} must match q "
+                         f"{tuple(q.shape)}")
+    if tuple(lse.shape) != (b, hq, sq):
+        raise ValueError(f"lse {tuple(lse.shape)} must be {(b, hq, sq)}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention runs on cuda or cpu, got "
+                         f"{q.device}")
+    return float(scale if scale is not None else d ** -0.5)
+
+
+def _launch_bwd(which, q, k, v, o, do, lse, delta, dq, dk, dv, offs, causal,
+                scale) -> None:
+    """One backward kernel: which 0 writes dq and delta, 1 dk and dv."""
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    if max(sq, sk) > MAX_SQ:
+        raise ValueError(f"flash attention's backward takes at most {MAX_SQ} "
+                         f"queries and keys, got {sq} and {sk}")
+    ptr = lambda x: 0 if x is None else x.data_ptr()
+    strides = lambda x: (0, 0, 0) if x is None else x.stride()[:3]
+    launch, error_string = _kernel_fns("flash_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = launch(which, _DTYPE_CODE[q.dtype], d, ptr(q), ptr(k), ptr(v),
+                     ptr(o), ptr(do), ptr(lse), ptr(delta), ptr(dq), ptr(dk),
+                     ptr(dv), offs.data_ptr(), b, sq, sk, hq, hkv,
+                     *strides(q), *strides(k), *strides(v), *strides(o),
+                     *strides(do), scale, int(causal), stream)
+    if err:
+        raise RuntimeError(f"flash backward kernel {which} launch failed: "
+                           + error_string(err).decode())
+
+
+def _cuda_do(do: torch.Tensor) -> torch.Tensor:
+    """The gradient autograd hands over may be strided or expanded: the
+    kernels read it through its strides when its rows are aligned, a
+    contiguous copy otherwise."""
+    return do if _aligned(do) else do.contiguous()
+
+
+def flash_dq(q, k, v, o, lse, do, q_offset: Offset = 0, *,
+             causal: bool = True, scale: Optional[float] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ported ``_dq_kernel``: (dq [b,sq,hq,d] in q's dtype, delta
+    [b,hq,sq] fp32 = rowsum(o * do), which ``flash_dkv`` reads).
+    ``flash_dq.launches`` counts kernel launches."""
+    scale = _bwd_checks(q, k, v, lse, do, scale)
+    if q.device.type == "cpu":
+        return flash_dq_reference(q, k, v, o, lse, do, q_offset,
+                                  causal=causal, scale=scale)
+    do = _cuda_do(do)
+    _check_cuda_inputs(q=q, k=k, v=v, o=o, do=do)
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("lse must be contiguous float32 [b, hq, sq]")
+    b, sq, hq, d = q.shape
+    dq = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    if sq == 0:
+        return dq, delta
+    _launch_bwd(0, q, k, v, o, do, lse, delta, dq, None, None,
+                _offsets(q_offset, b, q.device), causal, scale)
+    flash_dq.launches += 1
+    return dq, delta
+
+
+def flash_dkv(q, k, v, lse, delta, do, q_offset: Offset = 0, *,
+              causal: bool = True, scale: Optional[float] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ported ``_dkv_kernel``: (dk, dv) [b,sk,hkv,d] in k's and v's
+    dtypes, summed over the GQA group in the kernel. ``delta`` is
+    ``flash_dq``'s. ``flash_dkv.launches`` counts kernel launches."""
+    scale = _bwd_checks(q, k, v, lse, do, scale)
+    if q.device.type == "cpu":
+        return flash_dkv_reference(q, k, v, lse, delta, do, q_offset,
+                                   causal=causal, scale=scale)
+    do = _cuda_do(do)
+    _check_cuda_inputs(q=q, k=k, v=v, do=do)
+    for name, x in (("lse", lse), ("delta", delta)):
+        if (x.dtype != torch.float32 or not x.is_contiguous()
+                or x.shape != lse.shape):
+            raise ValueError(f"{name} must be contiguous float32 "
+                             f"[b, hq, sq]")
+    b, sk, hkv, d = k.shape
+    dk = torch.empty((b, sk, hkv, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, sk, hkv, d), dtype=v.dtype, device=v.device)
+    if sk == 0:
+        return dk, dv
+    _launch_bwd(1, q, k, v, None, do, lse, delta, None, dk, dv,
+                _offsets(q_offset, b, q.device), causal, scale)
+    flash_dkv.launches += 1
+    return dk, dv
+
+
+flash_dq.launches = 0
+flash_dkv.launches = 0
+
+
+def flash_bwd(q, k, v, o, lse, do, q_offset: Offset = 0, *,
+              causal: bool = True, scale: Optional[float] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The ported backward: (dq, dk, dv) through ``flash_dq`` then
+    ``flash_dkv`` on a CUDA tensor, ``flash_bwd_reference`` on a CPU one.
+    ``flash_bwd.launches`` counts the backward passes launched on the
+    card (two kernels each)."""
+    if q.device.type == "cpu":
+        scale = _bwd_checks(q, k, v, lse, do, scale)
+        return flash_bwd_reference(q, k, v, o, lse, do, q_offset,
+                                   causal=causal, scale=scale)
+    offs = _offsets(q_offset, q.shape[0], q.device)
+    dq, delta = flash_dq(q, k, v, o, lse, do, offs, causal=causal,
+                         scale=scale)
+    dk, dv = flash_dkv(q, k, v, lse, delta, do, offs, causal=causal,
+                       scale=scale)
+    flash_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_fwd`` forward, ``flash_bwd`` backward; the counterpart of
+    JAX's ``_flash_core`` custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, offs, causal, scale):
+        o, lse = flash_fwd(q, k, v, offs, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse, offs)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, offs = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, offs, causal=ctx.causal,
+                               scale=ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     q_offset: Offset = 0) -> torch.Tensor:
-    """Flash attention over [batch, seq, heads, head_dim]; forward only."""
-    return flash_fwd(q, k, v, q_offset, causal=causal, scale=scale)[0]
+    """Differentiable flash attention over [batch, seq, heads, head_dim]:
+    the forward kernel, and the dq/dkv kernels for its gradients. Where no
+    gradient is wanted (serving), the forward is called directly and
+    autograd records nothing."""
+    if not (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)):
+        return flash_fwd(q, k, v, q_offset, causal=causal, scale=scale)[0]
+    _check_shapes(q, k, v)
+    offs = _offsets(q_offset, q.shape[0], q.device)
+    return _FlashAttention.apply(q, k, v, offs, causal, scale)
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
@@ -182,5 +427,5 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              q_offset: Offset = 0
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [b,s,h,d], lse [b,h,s]) — the composable form for ring
-    attention."""
+    attention; forward-only, as in JAX."""
     return flash_fwd(q, k, v, q_offset, causal=causal, scale=scale)

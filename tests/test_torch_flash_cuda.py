@@ -1,5 +1,5 @@
-"""The CUDA flash-forward kernel against its plain PyTorch version, on the
-card. Marked ``cuda``: each test skips where no CUDA device is present
+"""The CUDA flash kernels (forward; backward dq and dkv) against their
+plain PyTorch versions, on the card. Marked ``cuda``: each test skips where no CUDA device is present
 (run on a GPU host with ``python -m pytest tests/test_torch_flash_cuda.py
 -m cuda``). Imports no jax, so it runs where jax is not installed.
 
@@ -7,7 +7,10 @@ Tolerances: float32 inputs 1e-4 absolute (fp32 sums in another order);
 bfloat16 2e-2 absolute + 2e-2 relative on ``o`` (the kernel rounds p to
 bf16 against its running max, the plain version against the final max,
 and both round o to bf16, one ulp of which is 1.6e-2 at |o| in [2, 4)),
-and 1e-3 on the fp32 ``lse``.
+and 1e-3 on the fp32 ``lse``. Backward: max |g - plain| over max |plain|
+per gradient, 1e-4 in float32 (summation order) and 1e-2 in bfloat16 (each
+gradient is summed in fp32 and rounded to bf16 once, one ulp of which is
+3.9e-3 of the element).
 """
 
 import pytest
@@ -62,3 +65,62 @@ def test_kernel_matches_plain(cuda, name, dtype):
         torch.testing.assert_close(o.float(), ref_o.float(), atol=2e-2,
                                    rtol=2e-2)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+
+
+BWD_CASES = {
+    # name: (b, sq, sk, hq, hkv, d, causal, offset)
+    "d16_gqa": (2, 96, 96, 4, 2, 16, True, 0),
+    "d64_s77": (2, 77, 77, 4, 2, 64, True, 0),
+    "d64_gqa8": (1, 130, 130, 8, 1, 64, True, 0),
+    "d128_noncausal": (1, 40, 70, 4, 4, 128, False, 0),
+    "d128_offset": (1, 17, 300, 8, 8, 128, True, 200),
+    "d64_offset40": (2, 96, 96, 4, 2, 64, True, 40),
+    "per_row": (3, 64, 64, 8, 2, 64, True, [0, 17, -5]),
+    "masked": (2, 96, 96, 4, 2, 16, True, -1000),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(BWD_CASES))
+def test_bwd_kernels_match_plain(cuda, name, dtype):
+    b, sq, sk, hq, hkv, d, causal, off = BWD_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, do = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+                   for shape in ((b, sq, hq, d), (b, sk, hkv, d),
+                                 (b, sk, hkv, d), (b, sq, hq, d)))
+    if isinstance(off, list):
+        off = torch.tensor(off, dtype=torch.int32, device=cuda)
+    o, lse = tflash.flash_fwd(q, k, v, off, causal=causal)
+    before = (tflash.flash_dq.launches, tflash.flash_dkv.launches,
+              tflash.flash_bwd.launches)
+    got = tflash.flash_bwd(q, k, v, o, lse, do, off, causal=causal)
+    torch.cuda.synchronize()
+    assert (tflash.flash_dq.launches, tflash.flash_dkv.launches,
+            tflash.flash_bwd.launches) == tuple(n + 1 for n in before)
+    want = tflash.flash_bwd_reference(q, k, v, o, lse, do, off,
+                                      causal=causal)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for x, y in zip(got, want):
+        assert x.dtype == dtype and x.shape == y.shape
+        if name == "masked":
+            assert bool((x == 0).all())
+            continue
+        err = float((x.float() - y.float()).abs().max() / y.float().abs().max())
+        assert err <= tol, err
+
+
+def test_flash_attention_grads_on_card(cuda):
+    """flash_attention's autograd through the kernels, with a strided
+    cotangent, equals the plain backward."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).requires_grad_()
+               for shape in ((2, 50, 4, 64), (2, 50, 2, 64), (2, 50, 2, 64)))
+    w = torch.randn((2, 4, 50, 64), generator=g, device=cuda)
+    do = w.transpose(1, 2)                      # not contiguous
+    o = tflash.flash_attention(q, k, v)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    qd, kd, vd = (x.detach() for x in (q, k, v))
+    o_ref, lse = tflash.flash_fwd_reference(qd, kd, vd)
+    want = tflash.flash_bwd_reference(qd, kd, vd, o_ref, lse, do)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, atol=1e-4, rtol=0)

@@ -180,6 +180,14 @@ def test_flash_plain_rounds_p_to_v_dtype():
 
 
 def test_flash_rejects_grad():
+    """flash_fwd and flash_attention_with_lse are forward-only, as JAX's
+    flash_attention_with_lse is; flash_attention is differentiable."""
     q, k, v = (_t(x).requires_grad_() for x in _qkv(b=1, s=8))
-    with pytest.raises(NotImplementedError, match="_dq_kernel"):
-        tflash.flash_attention(q, k, v)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        tflash.flash_fwd(q, k, v)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        tflash.flash_attention_with_lse(q, k, v)
+    o = tflash.flash_attention(q, k, v)
+    grads = torch.autograd.grad(o.sum(), (q, k, v))
+    assert all(g.shape == x.shape and bool(torch.isfinite(g).all())
+               for g, x in zip(grads, (q, k, v)))
