@@ -16,8 +16,10 @@ process per source, all at once), then:
    989 TFLOP/s bf16 or 67 TFLOP/s fp32, bytes at 3.35 TB/s);
 3. the two backward kernels (dq, dkv) against their plain versions the
    same way, at the 1b train step's shape (b 4, s 2048, 32/4 heads, d 64),
-   at 7b's d 128 and at small cases, with torch SDPA's backward as the
-   yardstick at the two training shapes;
+   at 7b's d 128 and at small cases cut at the edges of their tiles, with
+   torch SDPA's backward as the yardstick at the two training shapes, two
+   launches checked to give the same bits, each record with the kernels'
+   tiling, and the dkv grid's modelled scheduling tail;
 4. the 7b config cut to 2 layers: logits through the kernel
    (``attn_impl="flash"``) against plain-PyTorch attention (``"xla"``);
 5. the 1b config cut to 2 layers: ``lm_loss`` and every gradient through
@@ -70,9 +72,11 @@ TOL = {"bfloat16": (2e-2, 2e-2, 1e-3), "float32": (1e-4, 0.0, 1e-4)}
 # max |logit| (a few bf16 ulps of relative error through two layers)
 LOGIT_REL_TOL = 2e-2
 # backward kernels vs plain versions: max |g - plain| over max |plain|, per
-# gradient. Both sum in fp32 in different orders and round each result to
-# the input dtype once: in bf16 that is at most one ulp (2**-8 = 3.9e-3 of
-# the element); in fp32 only the order of up to sk * group terms differs.
+# gradient. bf16: the kernels form p and ds in fp32 and round them to bf16
+# (2**-9 of each term) as the operand of the dq, dk and dv products, whose
+# sums are fp32; the plain version keeps p and ds in fp32. Each gradient is
+# then rounded to bf16 once (one ulp is 2**-8 = 3.9e-3 of the element).
+# fp32: only the order of up to sk * group terms differs.
 BWD_REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 # 2-layer 1b gradients, flash vs plain attention, bf16 compute: max |diff|
 # over max |grad| per leaf. The plain path rounds its softmax weights and
@@ -278,6 +282,19 @@ BWD_CASES = {
     "masked_offset_-1000": (2, 96, 96, 4, 2, 16, True, -1000, "bfloat16"),
     "per_row_offsets_d64": (3, 64, 64, 8, 2, 64, True, [0, 17, -5],
                             "bfloat16"),
+    # one past and one short of the bf16 kernels' 64-row tiles
+    "s65_d64": (2, 65, 65, 4, 2, 64, True, 0, "bfloat16"),
+    "s63_d64": (2, 63, 63, 4, 2, 64, True, 0, "bfloat16"),
+    "s129_d128": (1, 129, 129, 4, 2, 128, True, 0, "bfloat16"),
+    "s127_d16": (2, 127, 127, 4, 2, 16, True, 0, "bfloat16"),
+    "sq20_d64": (2, 20, 20, 4, 2, 64, True, 0, "bfloat16"),
+    # the diagonal of every row cuts key tile 2 of [128, 192)
+    "sq40_sk300_offset100_d64": (2, 40, 300, 8, 2, 64, True, 100,
+                                 "bfloat16"),
+    "gqa8_d128": (1, 130, 130, 8, 1, 128, True, 0, "bfloat16"),
+    "per_row_offsets_d128": (3, 100, 100, 8, 2, 128, True, [-30, 5, 64],
+                             "bfloat16"),
+    "train_1b_cut_b1_s512": (1, 512, 512, 32, 4, 64, True, 0, "bfloat16"),
     "fp32_d16": (2, 96, 96, 4, 2, 16, True, 0, "float32"),
     "fp32_d128": (1, 130, 130, 4, 2, 128, True, 0, "float32"),
 }
@@ -308,11 +325,36 @@ def bwd_work(torch, b, sq, sk, hq, hkv, d, causal, offs, dtype):
     }
 
 
+def dkv_tail(b, sq, sk, hq, hkv, causal, offs, tiling, sms):
+    """The dkv grid's scheduling tail, modelled: each block's work in
+    streamed query tiles (its GQA group times the tiles from the first
+    query that sees its keys), blocks taken in launch order by the first
+    of (SMs x blocks per SM) slots to come free. Tail share = 1 - mean
+    slot load / the last slot's finish."""
+    import heapq
+
+    rows, tile = tiling["block_rows"], tiling["stream_tile"]
+    slots = [0] * (sms * tiling["blocks_per_sm"])
+    work = []
+    for kt in range((sk + rows - 1) // rows):       # grid.y, slowest
+        for bi in range(b):                         # grid.x: batch * kv head
+            start = max(0, kt * rows - int(offs[bi])) if causal else 0
+            work += [hq // hkv * -(-max(sq - start, 0) // tile)] * hkv
+    for w in work:
+        heapq.heappush(slots, heapq.heappop(slots) + w)
+    makespan = max(slots)
+    mean = sum(work) / len(slots)
+    return {"blocks": len(work), "slots": len(slots),
+            "makespan_tiles": makespan, "mean_slot_tiles": mean,
+            "tail_share": 1 - mean / makespan if makespan else 0.0}
+
+
 def bwd_kernel_phase(torch, flash):
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
     results = {}
+    tilings = {}
     g = torch.Generator(device=DEV).manual_seed(4321)
     for name, (b, sq, sk, hq, hkv, d, causal, off, dt) in BWD_CASES.items():
         dtype = getattr(torch, dt)
@@ -331,7 +373,19 @@ def bwd_kernel_phase(torch, flash):
                                                **kw)
         rdk, rdv = flash.flash_dkv_reference(q, k, v, lse, rdelta, do, offs,
                                              **kw)
+        # a second launch must give the same bits: every output element is
+        # summed by one block in a fixed order
+        dq2, delta2 = flash.flash_dq(q, k, v, o, lse, do, offs, **kw)
+        dk2, dv2 = flash.flash_dkv(q, k, v, lse, delta2, do, offs, **kw)
         torch.cuda.synchronize()
+        bitwise = all(torch.equal(x, y) for x, y in (
+            (dq, dq2), (dk, dk2), (dv, dv2), (delta, delta2)))
+        del dq2, dk2, dv2, delta2
+        check(bitwise or name != BWD_HEADLINE_CASE,
+              f"flash backward {name}: two launches differ")
+        if (dtype, d) not in tilings:
+            tilings[dtype, d] = flash.bwd_tiling(dtype, d)
+        tiling = tilings[dtype, d]
         rel = {}
         for gname, got, want in (("dq", dq, rdq), ("dk", dk, rdk),
                                  ("dv", dv, rdv)):
@@ -340,7 +394,7 @@ def bwd_kernel_phase(torch, flash):
             rel[gname] = diff / scale if scale else diff
         err_delta = float((delta - rdelta).abs().max())
         tol = BWD_REL_TOL[dt]
-        ok = (all(r <= tol for r in rel.values())
+        ok = (all(r <= tol for r in rel.values()) and bitwise
               and all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv)))
         if off == -1000:
             ok = ok and all(bool((x == 0).all()) for x in (dq, dk, dv))
@@ -396,6 +450,10 @@ def bwd_kernel_phase(torch, flash):
                          "offsets": offs.tolist(), "dtype": dt},
                "rel_err": rel, "rel_tol": tol,
                "max_abs_err_delta": err_delta,
+               "bitwise_repeat": bitwise, "tiling": tiling,
+               "dkv_schedule": dkv_tail(
+                   b, sq, sk, hq, hkv, causal, offs.tolist(), tiling["dkv"],
+                   torch.cuda.get_device_properties(0).multi_processor_count),
                "max_abs_err": max(float((x.float() - y.float()).abs().max())
                                   for x, y in ((dq, rdq), (dk, rdk),
                                                (dv, rdv))),
@@ -819,15 +877,18 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     t0 = time.perf_counter()
     build_s = _build.build()
+    ptxas = {n: _build.ptxas_summary(log)
+             for n, log in _build.build_log.items()}
     emit({"phase": "env", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0],
           "build_s": build_s, "build_wall_s": time.perf_counter() - t0,
-          "ptxas": {n: [ln for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln]
-                    for n, log in _build.build_log.items()}})
+          "ptxas": ptxas})
+    spills = {k: v for lib in ptxas.values() for k, v in lib.items()
+              if v["spill_bytes"]}
+    check(not spills, f"ptxas spills registers in {spills}")
 
     cases = kernel_phase(torch, flash) if "kernel" in only else None
     bwd_cases = bwd_kernel_phase(torch, flash) if "bwd" in only else None
@@ -862,6 +923,7 @@ def main(argv=None) -> int:
                          f"ray_tpu/ops/pallas/flash.py:{line}", launches,
                          bhead, part)
         e.update({"headline_case": BWD_HEADLINE_CASE,
+                  "tiling": bhead["tiling"][part],
                   "library_scope": "SDPA backward: dq, dk and dv together",
                   "passed": all(c["passed"] for c in bwd_cases.values()),
                   "cases": {n: {"ms": c["ms"][part],
@@ -870,7 +932,8 @@ def main(argv=None) -> int:
                                 "bound_ms": c["bound"][part]["bound_ms"],
                                 "bound_by": c["bound"][part]["bound_by"],
                                 "library_ms": c["library_ms"],
-                                "rel_err": c["rel_err"]}
+                                "rel_err": c["rel_err"],
+                                "bitwise_repeat": c["bitwise_repeat"]}
                             for n, c in bwd_cases.items()}})
         entries.append(e)
     for e in entries:

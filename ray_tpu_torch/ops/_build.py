@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -86,6 +87,31 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     return secs
+
+
+def ptxas_summary(log: str) -> Dict[str, Dict[str, int]]:
+    """{"kernel<dtype,D>": {"registers": n, "spill_bytes": m}} from the
+    ``-Xptxas -v`` lines of one build's log. A kernel of flash_bwd.cu is
+    named with its namespace, which sets its dtype: tcb (bf16) or simt
+    (float), as in "tcb::flash_bwd_dq_kernel<bf16,64>"."""
+    out, name, spill = {}, None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '.*?(?:(tcb|simt)\d+)?"
+                      r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(f)?\w*?Li"
+                      r"(\d+)E", ln)
+        if m:
+            ns, fp32 = m.group(1), m.group(3) or m.group(1) == "simt"
+            name = (f"{ns + '::' if ns else ''}{m.group(2)}"
+                    f"<{'float' if fp32 else 'bf16'},{m.group(4)}>")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name] = {"registers": int(m.group(1)), "spill_bytes": spill}
+            name = None
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -34,7 +34,10 @@ from ray_tpu_torch.ops.attention import NEG_INF, causal_mask
 Offset = Union[int, torch.Tensor]
 HEAD_DIMS = (16, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_SQ = 65535 * 16    # grid.y holds one 16-row query (or key) tile per index
+MAX_SQ = 65535 * 16    # forward: grid.y holds one 16-row query tile per index
+# backward: grid.y holds one query tile (dq) or key tile (dkv) per index,
+# 16 rows in the fp32 kernels and 64 in the bf16 tensor-core kernels
+BWD_TILE_ROWS = {torch.float32: 16, torch.bfloat16: 64}
 _fns = {}              # library name -> (launch, error_string)
 
 
@@ -198,10 +201,11 @@ flash_fwd.launches = 0
 
 
 def _p_ds(q, k, v, lse, do, delta, q_offset, causal, scale):
-    """(p, ds), each [b, hkv, group, sq, sk] fp32: the backward kernels'
+    """(p, ds), each [b, hkv, group, sq, sk] fp32: the TPU kernels' fp32
     arithmetic. p = exp(s - lse) where the key is visible and the row is
-    live (lse > NEG_INF/2), else 0; kept in fp32, not rounded to V's
-    dtype; ds = p (dp - delta) scale."""
+    live (lse > NEG_INF/2), else 0; ds = p (dp - delta) scale. Both stay
+    fp32 here; the bf16 CUDA kernels form them in fp32 too but round them
+    to bf16 as the operand of the dq, dk and dv products."""
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     group = hq // hkv
@@ -251,10 +255,13 @@ def flash_bwd_reference(q, k, v, o, lse, do, q_offset: Offset = 0, *,
                         causal: bool = True, scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward: (dq, dk, dv). The TPU
-    kernels' arithmetic: s in fp32 scaled after the dot, p from the saved
-    lse (0 where masked or where lse <= NEG_INF/2) kept in fp32, delta =
-    rowsum(o * do) in fp32, dq/dk/dv summed in fp32 (dk, dv over the GQA
-    group too) and each cast once to its input's dtype."""
+    kernels' fp32 arithmetic: s in fp32 scaled after the dot, p from the
+    saved lse (0 where masked or where lse <= NEG_INF/2) kept in fp32,
+    delta = rowsum(o * do) in fp32, dq/dk/dv summed in fp32 (dk, dv over
+    the GQA group too) and each cast once to its input's dtype. The fp32
+    CUDA kernels do the same; the bf16 ones round p and ds to bf16 for the
+    three second products (as the forward rounds p before PV) and sum them
+    in fp32, within 1e-2 of this version (max |g - plain| / max |plain|)."""
     dq, delta = flash_dq_reference(q, k, v, o, lse, do, q_offset,
                                    causal=causal, scale=scale)
     dk, dv = flash_dkv_reference(q, k, v, lse, delta, do, q_offset,
@@ -282,9 +289,10 @@ def _launch_bwd(which, q, k, v, o, do, lse, delta, dq, dk, dv, offs, causal,
     """One backward kernel: which 0 writes dq and delta, 1 dk and dv."""
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
-    if max(sq, sk) > MAX_SQ:
-        raise ValueError(f"flash attention's backward takes at most {MAX_SQ} "
-                         f"queries and keys, got {sq} and {sk}")
+    max_seq = 65535 * BWD_TILE_ROWS[q.dtype]
+    if max(sq, sk) > max_seq:
+        raise ValueError(f"flash attention's backward takes at most {max_seq}"
+                         f" queries and keys in {q.dtype}, got {sq} and {sk}")
     ptr = lambda x: 0 if x is None else x.data_ptr()
     strides = lambda x: (0, 0, 0) if x is None else x.stride()[:3]
     launch, error_string = _kernel_fns("flash_bwd")
@@ -298,6 +306,27 @@ def _launch_bwd(which, q, k, v, o, do, lse, delta, dq, dk, dv, offs, causal,
     if err:
         raise RuntimeError(f"flash backward kernel {which} launch failed: "
                            + error_string(err).decode())
+
+
+def bwd_tiling(dtype: torch.dtype, head_dim: int) -> dict:
+    """How the backward kernels tile on the current card, per kernel ("dq",
+    "dkv"): rows per block (queries, keys), the streamed tile (keys,
+    queries), threads, dynamic shared memory bytes, blocks resident per
+    SM."""
+    lib = _build.load("flash_bwd")
+    fn = lib.rtt_flash_bwd_config
+    fn.argtypes, fn.restype = [_I, _I, _I, ctypes.POINTER(_I)], _I
+    _, error_string = _kernel_fns("flash_bwd")
+    out = {}
+    for which, name in enumerate(("dq", "dkv")):
+        vals = (_I * 5)()
+        err = fn(which, _DTYPE_CODE[dtype], head_dim, vals)
+        if err:
+            raise RuntimeError("flash backward config failed: "
+                               + error_string(err).decode())
+        out[name] = dict(zip(("block_rows", "stream_tile", "threads",
+                              "smem_bytes", "blocks_per_sm"), vals))
+    return out
 
 
 def _cuda_do(do: torch.Tensor) -> torch.Tensor:

@@ -8,9 +8,11 @@ bfloat16 2e-2 absolute + 2e-2 relative on ``o`` (the kernel rounds p to
 bf16 against its running max, the plain version against the final max,
 and both round o to bf16, one ulp of which is 1.6e-2 at |o| in [2, 4)),
 and 1e-3 on the fp32 ``lse``. Backward: max |g - plain| over max |plain|
-per gradient, 1e-4 in float32 (summation order) and 1e-2 in bfloat16 (each
-gradient is summed in fp32 and rounded to bf16 once, one ulp of which is
-3.9e-3 of the element).
+per gradient, 1e-4 in float32 (summation order) and 1e-2 in bfloat16: the
+tensor-core kernels form p and ds in fp32 and round them to bf16 (2**-9 of
+each term) as the operand of the dq, dk and dv products, which sum in
+fp32, where the plain version keeps p and ds in fp32; each gradient is then
+rounded to bf16 once, one ulp of which is 3.9e-3 of the element.
 """
 
 import pytest
@@ -77,19 +79,37 @@ BWD_CASES = {
     "d64_offset40": (2, 96, 96, 4, 2, 64, True, 40),
     "per_row": (3, 64, 64, 8, 2, 64, True, [0, 17, -5]),
     "masked": (2, 96, 96, 4, 2, 16, True, -1000),
+    # one past and one short of the bf16 kernels' 64-row tiles, and less
+    # than one tile
+    "d64_s65": (2, 65, 65, 4, 2, 64, True, 0),
+    "d64_s63": (2, 63, 63, 4, 2, 64, True, 0),
+    "d128_s129": (1, 129, 129, 4, 2, 128, True, 0),
+    "d16_s127": (2, 127, 127, 4, 2, 16, True, 0),
+    "d64_s20": (2, 20, 20, 4, 2, 64, True, 0),
+    # every row's diagonal cuts key tile [128, 192)
+    "d64_sq40_sk300_offset100": (2, 40, 300, 8, 2, 64, True, 100),
+    "d128_gqa8": (1, 130, 130, 8, 1, 128, True, 0),
+    "d128_per_row": (3, 100, 100, 8, 2, 128, True, [-30, 5, 64]),
+    # the 1b train step's heads and head_dim, cut to b 1, s 512
+    "train_1b_b1_s512": (1, 512, 512, 32, 4, 64, True, 0),
 }
+
+
+def _bwd_inputs(device, name, dtype, seed):
+    b, sq, sk, hq, hkv, d, causal, off = BWD_CASES[name]
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g, device=device).to(dtype)
+                   for shape in ((b, sq, hq, d), (b, sk, hkv, d),
+                                 (b, sk, hkv, d), (b, sq, hq, d)))
+    if isinstance(off, list):
+        off = torch.tensor(off, dtype=torch.int32, device=device)
+    return q, k, v, do, off, causal
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", sorted(BWD_CASES))
 def test_bwd_kernels_match_plain(cuda, name, dtype):
-    b, sq, sk, hq, hkv, d, causal, off = BWD_CASES[name]
-    g = torch.Generator(device=cuda).manual_seed(1)
-    q, k, v, do = (torch.randn(shape, generator=g, device=cuda).to(dtype)
-                   for shape in ((b, sq, hq, d), (b, sk, hkv, d),
-                                 (b, sk, hkv, d), (b, sq, hq, d)))
-    if isinstance(off, list):
-        off = torch.tensor(off, dtype=torch.int32, device=cuda)
+    q, k, v, do, off, causal = _bwd_inputs(cuda, name, dtype, seed=1)
     o, lse = tflash.flash_fwd(q, k, v, off, causal=causal)
     before = (tflash.flash_dq.launches, tflash.flash_dkv.launches,
               tflash.flash_bwd.launches)
@@ -107,6 +127,21 @@ def test_bwd_kernels_match_plain(cuda, name, dtype):
             continue
         err = float((x.float() - y.float()).abs().max() / y.float().abs().max())
         assert err <= tol, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["train_1b_b1_s512", "d128_gqa8",
+                                  "d128_per_row"])
+def test_bwd_kernels_are_deterministic(cuda, name, dtype):
+    """Every output element is summed by one block in a fixed order (the
+    GQA sum too, with no atomics): two launches give the same bits."""
+    q, k, v, do, off, causal = _bwd_inputs(cuda, name, dtype, seed=3)
+    o, lse = tflash.flash_fwd(q, k, v, off, causal=causal)
+    first = tflash.flash_bwd(q, k, v, o, lse, do, off, causal=causal)
+    second = tflash.flash_bwd(q, k, v, o, lse, do, off, causal=causal)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 def test_flash_attention_grads_on_card(cuda):
