@@ -7,13 +7,19 @@ Builds every CUDA kernel from ``ray_tpu_torch/csrc`` (nvcc, sm_90a, one
 process per source, all at once), then:
 
 1. environment: the card, its power limit, torch/CUDA versions, build time;
-2. the forward kernel against its plain PyTorch version on the card, in
-   bf16 at the shapes the serving path gives it (7b prefill, cached
-   prefill, batched decode with per-row positions) and at small cases
-   (head_dim 16 and 64, unaligned s, GQA, non-causal, a fully masked
-   offset, float32), with its time, the plain version's time, torch SDPA's
-   time as a yardstick, and the least time the card could take (FLOPs at
-   989 TFLOP/s bf16 or 67 TFLOP/s fp32, bytes at 3.35 TB/s);
+2. the forward kernels (bf16 tensor cores from ``fwd_tiling``'s
+   threshold of query rows up, CUDA cores below it and for float32)
+   against their plain PyTorch version on the card, in bf16 at the shapes
+   the serving and training paths give them (7b prefill, cached prefill,
+   batched decode with per-row positions, the 1b train step, 7b's d 128 at
+   s 2048) and at small cases (head_dim 16 and 64, unaligned s, GQA,
+   non-causal, a fully masked offset, float32, cuts at the edges of the
+   64-row and 64-key tiles, one row below and at the threshold), two
+   launches checked to give the same bits, each record with its kernel and
+   tiling, with its time, the plain version's time, torch SDPA's time as a
+   yardstick (with the same mask, and with ``is_causal`` where the mask is
+   the plain causal square), and the least time the card could take
+   (FLOPs at 989 TFLOP/s bf16 or 67 TFLOP/s fp32, bytes at 3.35 TB/s);
 3. the two backward kernels (dq, dkv) against their plain versions the
    same way, at the 1b train step's shape (b 4, s 2048, 32/4 heads, d 64),
    at 7b's d 128 and at small cases cut at the edges of their tiles, with
@@ -27,11 +33,15 @@ process per source, all at once), then:
 6. serving: the 7b preset at full width and 32 layers with random bf16
    weights from a seeded generator, behind ``ContinuousEngine`` (8 slots,
    max_len 1024, decode stride 8), answering 8 staggered streamed
-   requests, each request's first token checked against ``generate``;
+   requests, each request's first token checked against ``generate``; the
+   prefills go through the tensor-core forward, the decode steps through
+   the CUDA-core one (both counted);
 7. training: the 1b preset at full width and 22 layers, fp32 master
    params from a seeded generator, bf16 compute, flash attention, remat,
    8 AdamW steps on a fixed [4, 2049] token batch; finite and falling loss,
-   tokens/s, MFU, peak memory and a profiled step;
+   tokens/s, MFU, peak memory, per-step garbage-collector counts, SM clocks
+   before and after, and a profiled step whose forward time must all be
+   the tensor-core kernel's;
 8. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
 
 Each path (serve, train) zeroes every kernel's launch count just before
@@ -50,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -153,7 +164,8 @@ def device_ms(torch, fn, iters):
 # ------------------------------------------------------------ phase 2
 
 # name: (b, sq, sk, hq, hkv, d, causal, offset, dtype); offset None means
-# per-row positions drawn in [sq, sk - 1], as the engine's decode rows.
+# per-row positions drawn in [sq, sk - 1], as the engine's decode rows; a
+# list gives each batch row its own position.
 KERNEL_CASES = {
     "prefill_7b": (1, 512, 512, 32, 32, 128, True, 0, "bfloat16"),
     "cached_prefill_7b": (1, 128, 1024, 32, 32, 128, True, 384, "bfloat16"),
@@ -171,10 +183,26 @@ KERNEL_CASES = {
     "masked_offset_-1000": (2, 96, 96, 4, 2, 16, True, -1000, "bfloat16"),
     "fp32_d16_offset40": (2, 96, 96, 4, 2, 16, True, 40, "float32"),
     "fp32_d128_decode": (4, 1, 300, 8, 8, 128, True, None, "float32"),
+    # one short of and one past the tensor-core kernel's 64-row tiles
+    "s63_d64": (2, 63, 63, 4, 2, 64, True, 0, "bfloat16"),
+    "s65_d64": (2, 65, 65, 4, 2, 64, True, 0, "bfloat16"),
+    "s129_d128": (1, 129, 129, 4, 2, 128, True, 0, "bfloat16"),
+    "gqa8_d128": (1, 130, 130, 8, 1, 128, True, 0, "bfloat16"),
+    "per_row_offsets_d128": (3, 100, 100, 8, 2, 128, True, [-30, 5, 64],
+                             "bfloat16"),
+    # the diagonal of every row cuts key tile 2 of [128, 192)
+    "sq40_sk300_offset100_d64": (2, 40, 300, 8, 2, 64, True, 100,
+                                 "bfloat16"),
+    "train_7b_d128": (1, 2048, 2048, 32, 32, 128, True, 0, "bfloat16"),
 }
-HEADLINE_CASE = "decode_7b_b8"   # the launch the serving path makes most
+# the launch each path makes most: train and prefill on the tensor-core
+# kernel, decode on the CUDA-core one
+HEADLINE_CASES = {"tcb": "train_1b_d64_gqa", "simt": "decode_7b_b8"}
 LIBRARY_CASES = ("prefill_7b", "cached_prefill_7b", "decode_7b_b8",
-                 "decode_7b_b1", "train_1b_d64_gqa")
+                 "decode_7b_b1", "train_1b_d64_gqa", "train_7b_d128")
+# the crossover cases: bf16, d 128, s_k 1024, the rows at the end of the
+# keys, one row below and at fwd_tiling's threshold
+THRESHOLD_SHAPE = (8, 1024, 32, 32, 128)   # b, sk, hq, hkv, d
 # plain versions that hold GBs of fp32 scores: timed eagerly (device-bound
 # there), not captured five times into one CUDA graph
 EAGER_PLAIN_CASES = ("train_1b_d64_gqa", "train_7b_d128")
@@ -198,13 +226,24 @@ def work(torch, b, sq, sk, hq, hkv, d, causal, offs, dtype):
     return flops, nbytes
 
 
+def threshold_cases(tc_min_sq):
+    """Cases one row below and at the fewest bf16 rows that take the
+    tensor-core kernel (at THRESHOLD_SHAPE)."""
+    b, sk, hq, hkv, d = THRESHOLD_SHAPE
+    return {f"sq{sq}_{where}_threshold_d128":
+            (b, sq, sk, hq, hkv, d, True, sk - sq, "bfloat16")
+            for sq, where in ((tc_min_sq - 1, "below"), (tc_min_sq, "at"))
+            if sq >= 1}
+
+
 def kernel_phase(torch, flash):
     import torch.nn.functional as F
 
     results = {}
     g = torch.Generator(device=DEV).manual_seed(1234)
-    for name, (b, sq, sk, hq, hkv, d, causal, off, dt) in \
-            KERNEL_CASES.items():
+    tc_min_sq = flash.fwd_tiling(torch.bfloat16, 128, 1)["tc_min_sq"]
+    cases = {**KERNEL_CASES, **threshold_cases(tc_min_sq)}
+    for name, (b, sq, sk, hq, hkv, d, causal, off, dt) in cases.items():
         dtype = getattr(torch, dt)
         q = torch.randn((b, sq, hq, d), generator=g, device=DEV).to(dtype)
         k = torch.randn((b, sk, hkv, d), generator=g, device=DEV).to(dtype)
@@ -212,18 +251,30 @@ def kernel_phase(torch, flash):
         if off is None:
             offs = torch.randint(sq, sk, (b,), generator=g, device=DEV,
                                  dtype=torch.int32)
+        elif isinstance(off, list):
+            offs = torch.tensor(off, dtype=torch.int32, device=DEV)
         else:
             offs = torch.full((b,), off, dtype=torch.int32, device=DEV)
+        tiling = flash.fwd_tiling(dtype, d, sq)
+        before = dict(flash.flash_fwd.launches_by_kernel)
         o, lse = flash.flash_fwd(q, k, v, offs, causal=causal)
+        # a second launch must give the same bits: each row is summed by
+        # one warp in a fixed order
+        o2, lse2 = flash.flash_fwd(q, k, v, offs, causal=causal)
+        ran = {kern: n - before[kern]
+               for kern, n in flash.flash_fwd.launches_by_kernel.items()}
         ro, rlse = flash.flash_fwd_reference(q, k, v, offs, causal=causal)
         torch.cuda.synchronize()
+        bitwise = torch.equal(o, o2) and torch.equal(lse, lse2)
+        del o2, lse2
         atol, rtol, lse_tol = TOL[dt]
         err_o = float((o.float() - ro.float()).abs().max())
         excess = float(((o.float() - ro.float()).abs()
                         - (atol + rtol * ro.float().abs())).max())
         err_lse = float((lse - rlse).abs().max())
-        ok = excess <= 0 and err_lse <= lse_tol and bool(
-            torch.isfinite(o).all())
+        ok = (excess <= 0 and err_lse <= lse_tol and bitwise
+              and bool(torch.isfinite(o).all())
+              and ran[tiling["kernel"]] == 2)
         if off == -1000:
             ok = ok and bool((o == 0).all()) and float(lse.max()) < -1e9
         iters = 20
@@ -235,15 +286,21 @@ def kernel_phase(torch, flash):
         plain_ms = (time_ms(torch, plain, 3, warmup=1)
                     if name in EAGER_PLAIN_CASES else
                     device_ms(torch, plain, 5))
-        library_ms = None
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = library_causal_ms = None
         if name in LIBRARY_CASES:
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             pos = torch.arange(sq, device=DEV)[None, :] + offs[:, None]
             mask = (pos[:, None, :, None]
                     >= torch.arange(sk, device=DEV)[None, None, None, :])
             library_ms = device_ms(
                 torch, lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=mask, enable_gqa=hq != hkv), iters)
+        if causal and off == 0 and sq == sk:
+            # the plain causal square: SDPA's own causal kernels, the call
+            # the backward's yardstick makes too
+            library_causal_ms = device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=hq != hkv), iters)
         flops, nbytes = work(torch, b, sq, sk, hq, hkv, d, causal, offs,
                              dtype)
         t_flops = flops / PEAK_FLOPS[dt] * 1e3
@@ -252,17 +309,24 @@ def kernel_phase(torch, flash):
                "shape": {"b": b, "sq": sq, "sk": sk, "hq": hq, "hkv": hkv,
                          "d": d, "causal": causal,
                          "offsets": offs.tolist(), "dtype": dt},
+               "fwd_kernel": tiling["kernel"], "tiling": tiling,
                "max_abs_err_o": err_o, "tol_o": {"atol": atol, "rtol": rtol},
                "max_abs_err_lse": err_lse, "tol_lse": lse_tol,
+               "bitwise_repeat": bitwise,
                "ms": kernel_ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
                "library_ms": library_ms,
+               "library_causal_ms": library_causal_ms,
+               "tflops_per_s": flops / kernel_ms / 1e9,
                "bound_ms": max(t_flops, t_bytes),
                "bound_by": "operations" if t_flops > t_bytes else "bytes",
                "flops": flops, "bytes": nbytes, "passed": ok}
         emit(rec)
         results[name] = rec
         check(ok, f"flash_fwd {name}: o err {err_o} (tol {atol}+{rtol}|o|),"
-                  f" lse err {err_lse} (tol {lse_tol})")
+                  f" lse err {err_lse} (tol {lse_tol}), bitwise {bitwise},"
+                  f" launched {ran}, want 2 on {tiling['kernel']}")
+        del q, k, v, o, lse, ro, rlse, qt, kt, vt
+        torch.cuda.empty_cache()
     return results
 
 
@@ -612,6 +676,18 @@ def serve_phase(torch, np, tllama, TG, ContinuousEngine, flash):
     check(launches["flash_fwd"] >= want_launches and want_launches > 0,
           f"flash_fwd launched {launches['flash_fwd']} times, the path made "
           f"{want_launches} attention calls")
+    # prefills of at least tc_min_sq rows take the tensor-core kernel, the
+    # decode steps (one row) the CUDA-core one
+    tc_min_sq = flash.fwd_tiling(torch.bfloat16, cfg.head_dim, 1)["tc_min_sq"]
+    want_by_kernel = {
+        "tcb": cfg.n_layers * sum(s >= tc_min_sq for s in SERVE_PROMPT_LENS),
+        "simt": cfg.n_layers * (stats["decode_steps"] + sum(
+            s < tc_min_sq for s in SERVE_PROMPT_LENS))}
+    for kern, want in want_by_kernel.items():
+        got = launches[f"flash_fwd_{kern}"]
+        check(got >= want and got > 0,
+              f"the {kern} forward kernel launched {got} times, the path "
+              f"made {want} calls of its shapes")
 
     ttft = [stamps[i][0] - t_submit[i] for i in range(len(prompts))]
     first_any = min(stamps[i][0] for i in stamps)
@@ -639,6 +715,8 @@ def serve_phase(torch, np, tllama, TG, ContinuousEngine, flash):
           "peak_mem_bytes": peak, "engine_stats": stats,
           "launches": launches,
           "attention_calls_expected": want_launches,
+          "fwd_launches_expected_by_kernel": want_by_kernel,
+          "fwd_tc_min_sq": tc_min_sq,
           "first_token_match": f"{first_match}/{len(prompts)}",
           "token_match_rate_vs_generate": seq_match / total})
     check(first_match == len(prompts),
@@ -679,8 +757,7 @@ def step_breakdown(torch, params, cfg, prompts):
         torch.cuda.synchronize()
     per_kernel = device_kernel_ms(torch, prof, k)
     busy = sum(per_kernel.values())
-    flash_ms = sum(t for name, t in per_kernel.items()
-                   if "flash_fwd_kernel" in name)
+    flash_ms = fwd_ms_by_kernel(per_kernel)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     emit({"phase": "step_breakdown", "config": "7b, 32 layers, bf16",
           "prefill_ms_by_prompt_len": prefill_ms,
@@ -689,7 +766,8 @@ def step_breakdown(torch, params, cfg, prompts):
           "device_busy_ms_per_step": busy if busy else "not measured",
           "device_idle_share": 1 - busy / step_ms if busy else
           "not measured",
-          "flash_fwd_ms_per_step": flash_ms,
+          "flash_fwd_ms_per_step": sum(flash_ms.values()),
+          "flash_fwd_ms_per_step_by_kernel": flash_ms,
           "top_kernels_ms_per_step": [[n[:80], t] for n, t in top]})
 
 
@@ -701,10 +779,35 @@ LAUNCH_COUNTERS = ("flash_fwd", "flash_dq", "flash_dkv", "flash_bwd")
 def zero_launches(flash):
     for name in LAUNCH_COUNTERS:
         getattr(flash, name).launches = 0
+    counts = flash.flash_fwd.launches_by_kernel
+    for kern in counts:
+        counts[kern] = 0
 
 
 def read_launches(flash):
-    return {name: getattr(flash, name).launches for name in LAUNCH_COUNTERS}
+    """Each wrapper's count, and the forward's split by kernel as
+    ``flash_fwd_tcb`` and ``flash_fwd_simt``."""
+    out = {name: getattr(flash, name).launches for name in LAUNCH_COUNTERS}
+    out.update({f"flash_fwd_{kern}": n for kern, n in
+                flash.flash_fwd.launches_by_kernel.items()})
+    return out
+
+
+def fwd_ms_by_kernel(per_kernel):
+    """Device ms of the forward by kernel, from profiler names such as
+    ``void (anonymous namespace)::tcb::flash_fwd_kernel<64>(...)``."""
+    return {kern: sum(t for n, t in per_kernel.items()
+                      if f"{kern}::flash_fwd_kernel" in n)
+            for kern in ("tcb", "simt")}
+
+
+def nvidia_smi_clocks():
+    """SM clock, its maximum, power draw and temperature, as nvidia-smi
+    reads them now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
 
 
 def device_kernel_ms(torch, prof, per):
@@ -736,11 +839,17 @@ def train_phase(torch, np, tllama, tts, tflops, flash):
     alloc_keys = ("num_device_alloc", "num_device_free", "num_alloc_retries")
     alloc_now = lambda: [torch.cuda.memory_stats().get(k, 0)
                          for k in alloc_keys]
+    # the garbage collector's work in each step: gc.get_count() deltas and
+    # the collections it ran, by generation
+    gc_now = lambda: (list(gc.get_count()),
+                      [s["collections"] for s in gc.get_stats()])
+    clocks_before = nvidia_smi_clocks()
     zero_launches(flash)
     losses, norms, step_ms, events, allocs = [], [], [], [], []
+    gc_counts, gc_collections = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
-        a0 = alloc_now()
+        a0, (c0, n0) = alloc_now(), gc_now()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         t0 = time.perf_counter()
         ev[0].record()
@@ -751,21 +860,29 @@ def train_phase(torch, np, tllama, tts, tflops, flash):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         events.append(ev)
         allocs.append([b - a for a, b in zip(a0, alloc_now())])
+        c1, n1 = gc_now()
+        gc_counts.append([b - a for a, b in zip(c0, c1)])
+        gc_collections.append([b - a for a, b in zip(n0, n1)])
     launches = read_launches(flash)
+    clocks_after = nvidia_smi_clocks()
     # first event to last on the device's clock: device work plus the gaps
     # where it waited for the host
     step_device_ms = [a.elapsed_time(b) for a, b in events]
     peak = torch.cuda.max_memory_allocated()
 
+    fwd0 = dict(flash.flash_fwd.launches_by_kernel)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step(params, state, batch)
         torch.cuda.synchronize()
+    fwd_launches = {kern: n - fwd0[kern] for kern, n in
+                    flash.flash_fwd.launches_by_kernel.items()}
     per_kernel = device_kernel_ms(torch, prof, 1)
     busy = sum(per_kernel.values())
     flash_ms = {kind: sum(t for n, t in per_kernel.items() if kind in n)
                 for kind in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                              "flash_bwd_dkv_kernel")}
+    fwd_ms = fwd_ms_by_kernel(per_kernel)
     gemm_ms = sum(t for n, t in per_kernel.items()
                   if "gemm" in n.lower() or "nvjet" in n.lower())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
@@ -782,6 +899,11 @@ def train_phase(torch, np, tllama, tts, tflops, flash):
           "step_ms": step_ms, "step_event_ms": step_device_ms,
           "step_allocator": {k: [a[i] for a in allocs]
                              for i, k in enumerate(alloc_keys)},
+          "step_gc_count_delta": gc_counts,
+          "step_gc_collections": gc_collections,
+          "nvidia_smi_clocks": {
+              "query": "clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+              "before_loop": clocks_before, "after_loop": clocks_after},
           "median_step_ms_steps_3_to_8": med_ms,
           "tokens_per_s": tokens_per_step * 1e3 / med_ms,
           "step_flops": step_flops,
@@ -793,6 +915,8 @@ def train_phase(torch, np, tllama, tts, tflops, flash):
               "device_idle_share": 1 - busy / med_ms if busy else
               "not measured",
               "flash_ms": flash_ms,
+              "flash_fwd_ms_by_kernel": fwd_ms,
+              "flash_fwd_launches_by_kernel": fwd_launches,
               "flash_share_of_busy": (sum(flash_ms.values()) / busy
                                       if busy else "not measured"),
               "gemm_ms": gemm_ms,
@@ -804,11 +928,19 @@ def train_phase(torch, np, tllama, tts, tflops, flash):
           f"first loss {losses[0]} not within {FIRST_LOSS_MARGIN} of "
           f"ln {cfg.vocab_size}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    for name, per_step in (("flash_fwd", 2 * n_layers), ("flash_dq", n_layers),
-                           ("flash_dkv", n_layers), ("flash_bwd", n_layers)):
+    for name, per_step in (("flash_fwd", 2 * n_layers),
+                           ("flash_fwd_tcb", 2 * n_layers),
+                           ("flash_dq", n_layers), ("flash_dkv", n_layers),
+                           ("flash_bwd", n_layers)):
         check(launches[name] >= per_step * TRAIN_STEPS,
               f"{name} launched {launches[name]} times in {TRAIN_STEPS} "
               f"steps, want >= {per_step} a step")
+    # the forward's device time is all the tensor-core kernel's
+    check(launches["flash_fwd_simt"] == 0 and fwd_launches == {
+        "tcb": 2 * n_layers, "simt": 0} and (not busy or (
+            fwd_ms["tcb"] > 0 and fwd_ms["simt"] == 0)),
+          f"the CUDA-core forward ran in training: launches {launches}, "
+          f"profiled step {fwd_launches}, device ms {fwd_ms}")
     del params, state
     torch.cuda.empty_cache()
     return launches
@@ -817,15 +949,18 @@ def train_phase(torch, np, tllama, tts, tflops, flash):
 PHASES = ("kernel", "bwd", "integration", "grad", "serve", "train")
 
 
-def kernel_entry(name, source, replaces, launches, head, part=None):
-    """One entry of the ``kernels`` line from a headline case record."""
+def kernel_entry(name, source, replaces, launches, head, part=None,
+                 counter=None):
+    """One entry of the ``kernels`` line from a headline case record; its
+    launches are the paths' counts under ``counter`` (default ``name``)."""
     pick = (lambda key: head[key]) if part is None else \
         (lambda key: head[key][part])
     bound = head["bound"][part] if part else head
+    counter = counter or name
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": sum(c[name] for c in launches.values()),
-            "launches_by_path": {path: c[name]
+            "launches": sum(c[counter] for c in launches.values()),
+            "launches_by_path": {path: c[counter]
                                  for path, c in launches.items()},
             "max_abs_err": head["max_abs_err_o"] if part is None else
             head["max_abs_err"],
@@ -907,17 +1042,29 @@ def main(argv=None) -> int:
         print(json.dumps({"partial_run": sorted(only)}), flush=True)
         return 0
 
-    head = cases[HEADLINE_CASE]
-    fwd = kernel_entry("flash_fwd", "ray_tpu_torch/csrc/flash_fwd.cu",
-                       "ray_tpu/ops/pallas/flash.py:41", launches, head)
-    fwd.update({"headline_case": HEADLINE_CASE,
-                "passed": all(c["passed"] for c in cases.values()),
-                "cases": {n: {key: c[key] for key in (
-                    "ms", "eager_ms", "plain_ms", "library_ms", "bound_ms",
-                    "bound_by", "max_abs_err_o", "max_abs_err_lse")}
-                    for n, c in cases.items()}})
+    # the forward's two kernels, one entry each: flash_fwd is the
+    # tensor-core kernel (train, prefill), flash_fwd_simt the CUDA-core one
+    # (decode, float32); both behind the flash_fwd wrapper
+    entries = []
+    for name, kern in (("flash_fwd", "tcb"), ("flash_fwd_simt", "simt")):
+        head = cases[HEADLINE_CASES[kern]]
+        e = kernel_entry(name, "ray_tpu_torch/csrc/flash_fwd.cu",
+                         "ray_tpu/ops/pallas/flash.py:41", launches, head,
+                         counter=f"flash_fwd_{kern}")
+        e.update({"kernel": f"{kern}::flash_fwd_kernel",
+                  "wrapper": "ray_tpu_torch/ops/flash.py:flash_fwd",
+                  "headline_case": HEADLINE_CASES[kern],
+                  "tiling": head["tiling"],
+                  "library_causal_ms": head["library_causal_ms"],
+                  "passed": all(c["passed"] for c in cases.values()
+                                if c["fwd_kernel"] == kern),
+                  "cases": {n: {key: c[key] for key in (
+                      "ms", "eager_ms", "plain_ms", "library_ms",
+                      "library_causal_ms", "bound_ms", "bound_by",
+                      "max_abs_err_o", "max_abs_err_lse", "bitwise_repeat")}
+                      for n, c in cases.items() if c["fwd_kernel"] == kern}})
+        entries.append(e)
     bhead = bwd_cases[BWD_HEADLINE_CASE]
-    entries = [fwd]
     for name, part, line in (("flash_dq", "dq", 138), ("flash_dkv", "dkv", 174)):
         e = kernel_entry(name, "ray_tpu_torch/csrc/flash_bwd.cu",
                          f"ray_tpu/ops/pallas/flash.py:{line}", launches,

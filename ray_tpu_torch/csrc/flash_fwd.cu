@@ -8,43 +8,53 @@
 //   p rounded to V's dtype before the PV product, l summed from fp32 p
 //   o = acc / l (0 where l == 0), lse = m + log(l) (NEG_INF where l == 0)
 // q, k, v are read in place through their [b, s, h, d] strides (d must be
-// contiguous); the GQA kv head is h / (hq / hkv); the ragged key edge and
-// the causal edge are masked here, so nothing is padded or repeated.
+// contiguous, rows 16-byte aligned); the GQA kv head is h / (hq / hkv); the
+// ragged key edge and the causal edge are masked here, so nothing is padded
+// or repeated. o is written [b, sq, hq, d] and lse [b, hq, sq], contiguous.
 //
 // What bounds it on an H100:
-// - Prefill at long s is bounded by FLOPs: 4 * s_q * s_k * d per head
-//   (halved by the causal mask), far above the 295 FLOP/byte ridge.
-// - Decode at s_q = 1 is bounded by the bytes of the K/V cache it reads:
-//   every key of the row is read once for a handful of FLOPs.
-// What this simple design does about each: the K loop of every warp stops
-// at its rows' causal diagonal, so neither the FLOPs nor the cache bytes
-// past a row's position are spent (a decode row at position p reads p + 1
-// keys, not max_len). When a block holds fewer than 16 query rows (decode),
-// its four warps split the key tiles among themselves and merge their
-// (m, l, acc) at the end, so all four warps stream K/V instead of one.
-// K/V tiles come in with 16-byte loads into shared memory. The products
-// run on the fp32 CUDA cores, not the tensor cores (no wgmma, no TMA yet):
-// prefill sits far from its FLOP bound, which is later work.
+// - Training and prefill (s_q in the hundreds or thousands) are bounded by
+//   FLOPs: 4 * d per visible (query, key) pair and q head, hundreds of
+//   FLOPs per byte moved, far above the 295 FLOP/byte ridge of bf16. The
+//   products belong on the tensor cores (989 TFLOP/s bf16 dense, against
+//   67 TFLOP/s on the fp32 CUDA cores).
+// - Decode (s_q = 1) is bounded by the bytes of the K/V cache it reads:
+//   every key of the row is read once for a handful of FLOPs. What counts
+//   there is how many loads are in flight, not which unit multiplies.
 //
-// Layout of one block: 4 warps, 4 query rows per warp (16 rows), one block
-// per (batch * q-head, 16-row query tile). A warp owns private shared
-// tiles of 32 keys (one key per lane for Q.K, one head-dim slice per lane
-// for P.V), so warps never wait for one another inside the K loop.
+// Two kernels; rtt_flash_fwd picks one (dispatch, at the end of the file):
+// - tcb (bfloat16, s_q >= TC_MIN_SQ): the tensor-core kernel. One block
+//   per (batch * q-head, 64 query rows), 4 warps of 16 rows. The Q tile is
+//   loaded once with cp.async into a swizzled shared tile (tensor_core.cuh)
+//   and held as mma A fragments in registers; K/V tiles of 64 keys are
+//   double-buffered with cp.async up to the block's causal diagonal. s = Q
+//   K^T and o += P V are mma.sync m16n8k16 (bf16 in, fp32 sums, as JAX's
+//   preferred_element_type=f32); the online softmax runs in registers, its
+//   row max and row sum across the 4 lanes of a quad. p is formed in fp32,
+//   l summed from it, and p rounded to bf16 only as the A operand of P V,
+//   packed straight from the s accumulators (flash.py:83's p.astype). A
+//   warp skips the tiles past its own rows' diagonal and the masks of a
+//   tile it sees whole; the last query tiles, which see the most keys, are
+//   launched first.
+// - simt (float32, and single-row bfloat16): the CUDA-core kernel.
+//   One block per (batch * q-head, 16 query rows), 4 warps of 4 rows, each
+//   warp streaming private 32-key tiles through shared memory with 16-byte
+//   loads. Each warp's K loop stops at its rows' causal diagonal, so a
+//   decode row at position p reads p + 1 keys, not max_len; when a block
+//   holds fewer than 16 rows (decode), its four warps split the key tiles
+//   and merge their (m, l, acc) at the end, so all four stream K/V.
+// Both give dead rows (no visible key) o = 0 and lse = NEG_INF, and repeat
+// their bits from launch to launch.
+
+#include <type_traits>
 
 #include "flash_common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
-using rtt::Elem;
 using rtt::FULL;
 using rtt::NEG_INF;
-using rtt::warp_max;
-using rtt::warp_sum;
-
-constexpr int WARPS = 4;
-constexpr int ROWS = 4;             // query rows per warp
-constexpr int BQ = WARPS * ROWS;    // query rows per block
-constexpr int BK = 32;              // keys per tile: one per lane
 
 struct Params {
   const void* q;
@@ -60,6 +70,22 @@ struct Params {
   float scale;
   int causal;
 };
+
+// grid.y holds one query tile per index
+constexpr int MAX_GRID_Y = 65535;
+
+// ---------------------------------------------------------------- simt
+// CUDA-core kernel: float32, and bfloat16 calls of fewer than TC_MIN_SQ rows.
+namespace simt {
+
+using rtt::Elem;
+using rtt::warp_max;
+using rtt::warp_sum;
+
+constexpr int WARPS = 4;
+constexpr int ROWS = 4;             // query rows per warp
+constexpr int BQ = WARPS * ROWS;    // query rows per block
+constexpr int BK = 32;              // keys per tile: one per lane
 
 template <typename T, int D>
 struct Shape {
@@ -315,24 +341,321 @@ flash_fwd_kernel(const Params p) {
   }
 }
 
+// Launch the kernel, or with `config` fill config[1..5] as
+// rtt_flash_fwd_config describes instead.
 template <typename T, int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+cudaError_t run(const Params* p, int* config, cudaStream_t stream) {
   using S = Shape<T, D>;
   static bool opted_in[64] = {};
   cudaError_t err = rtt::opt_in_smem(flash_fwd_kernel<T, D>, S::BYTES,
                                      opted_in);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.b * p.hq, (p.sq + BQ - 1) / BQ);
-  flash_fwd_kernel<T, D><<<grid, WARPS * 32, S::BYTES, stream>>>(p);
+  if (config) {
+    config[1] = BQ;
+    config[2] = BK;
+    config[3] = WARPS * 32;
+    config[4] = S::BYTES;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &config[5], flash_fwd_kernel<T, D>, WARPS * 32, S::BYTES);
+  }
+  const int tiles = (p->sq + BQ - 1) / BQ;
+  if (tiles > MAX_GRID_Y) return cudaErrorInvalidValue;
+  const dim3 grid(p->b * p->hq, tiles);
+  flash_fwd_kernel<T, D><<<grid, WARPS * 32, S::BYTES, stream>>>(*p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int head_dim, const Params& p, cudaStream_t stream) {
+}  // namespace simt
+
+// ---------------------------------------------------------------- bf16
+// Tensor-core kernel: both products are mma.sync m16n8k16 (bf16 in, fp32
+// sums) on operands that ldmatrix reads from swizzled shared tiles.
+namespace tcb {
+
+using namespace rtt::tc;
+using BF = __nv_bfloat16;
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// Tile sizes by head_dim: ROWS query rows per block (16 per warp), K/V
+// streamed KEYS keys at a time, two stages. At d 128 the o accumulator is
+// 64 floats a lane and the Q fragments 32 registers; s takes KEYS / 2.
+// Chosen on an H100 with ray_tpu_torch/tools/tune_flash_fwd.py: 128-row
+// blocks (8 warps) were 30 % slower at the 1b train shape, 128-key tiles
+// at d 64 7 % slower, 32-key tiles at d 128 17 % slower, and capping d 64
+// at 128 registers for a 4th block an SM spilled.
+template <int D>
+struct Cfg {
+  static constexpr int ROWS = 64;
+  static constexpr int KEYS = 64;
+  static constexpr int THREADS = ROWS / 16 * 32;
+  // dynamic shared memory: the Q tile and two K/V stages
+  static constexpr int BYTES = ROWS * D * 2 + 4 * KEYS * D * 2;
+};
+
+// 2**x on the special-function unit; results below 2**-126 flush to 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS)
+flash_fwd_kernel(const Params p) {
+  using C = Cfg<D>;
+  using TL = Tile<D>;
+  constexpr int BM = C::ROWS, BN = C::KEYS, THREADS = C::THREADS;
+  constexpr int Q_BYTES = BM * D * 2, KV_BYTES = BN * D * 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int bi = bh / p.hq, h = bh % p.hq;
+  const int hk = h / (p.hq / p.hkv);
+  // the last query tiles see the most keys: they are launched first
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int nrows = min(BM, p.sq - m0);
+  const int off = p.qoff[bi];
+
+  const uint32_t sQ = smem_addr(smem);
+  const uint32_t sKV = sQ + Q_BYTES;   // stage s: K at + 2s KV_BYTES, V after
+
+  const BF* qb = static_cast<const BF*>(p.q) + bi * p.q_sb +
+                 (long long)m0 * p.q_ss + h * p.q_sh;
+  const BF* kb = static_cast<const BF*>(p.k) + bi * p.k_sb + hk * p.k_sh;
+  const BF* vb = static_cast<const BF*>(p.v) + bi * p.v_sb + hk * p.v_sh;
+
+  // keys the block's rows can see: [0, kend)
+  int kend = p.sk;
+  if (p.causal) kend = min(kend, m0 + nrows + off);
+  kend = max(kend, 0);
+  const int ntiles = (kend + BN - 1) / BN;
+  // ... and this warp's 16 rows: [0, wkend); a warp past the last row
+  // sees none
+  const int w0 = m0 + warp * 16;
+  const int wrows = min(16, nrows - warp * 16);
+  int wkend = wrows > 0 ? kend : 0;
+  if (p.causal) wkend = min(wkend, w0 + wrows + off);
+
+  auto load_kv = [&](int tile) {
+    const uint32_t stage = sKV + (tile & 1) * 2 * KV_BYTES;
+    const int k0 = tile * BN;
+    load_tile_async<D, BN, THREADS>(stage, kb + (long long)k0 * p.k_ss, p.k_ss,
+                                    kend - k0, tid);
+    load_tile_async<D, BN, THREADS>(stage + KV_BYTES, vb + (long long)k0 * p.v_ss,
+                                    p.v_ss, kend - k0, tid);
+  };
+
+  load_tile_async<D, BM, THREADS>(sQ, qb, p.q_ss, nrows, tid);
+  cp_async_commit();
+  if (ntiles > 0) load_kv(0);
+  cp_async_commit();
+  cp_async_wait<1>();   // Q has landed (this thread's copies)
+  __syncthreads();      // ... and every other thread's
+
+  // ldmatrix row/chunk of this lane: A operands (16 rows x 16 columns),
+  // B operands for two n8 tiles (non-transposed and transposed)
+  const int a_row = warp * 16 + (lane & 15), a_chunk = lane >> 4;
+  const int b_row = ((lane >> 4) << 3) + (lane & 7), b_chunk = (lane >> 3) & 1;
+  const int bt_row = (((lane >> 3) & 1) << 3) + (lane & 7), bt_chunk = lane >> 4;
+
+  // the warp's Q rows as A fragments, held for the whole K loop
+  uint32_t aq[D / 16][4];
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc)
+    ldmatrix_x4(aq[kc], TL::addr(sQ, a_row, 2 * kc + a_chunk));
+
+  // this lane's two rows, g and g + 8 of the warp's 16: running max (in
+  // units of log2, scale included) and this lane's part of the running sum
+  float m2[2] = {NEG_INF, NEG_INF}, l2[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const float scale_log2 = p.scale * LOG2E;
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    if (tile + 1 < ntiles) load_kv(tile + 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // this tile's K/V; the next may still be in flight
+    __syncthreads();
+    const int kbase = tile * BN;
+    if (kbase < wkend) {  // else no key of the tile is visible to the warp
+      const uint32_t sK = sKV + (tile & 1) * 2 * KV_BYTES, sV = sK + KV_BYTES;
+
+      // s = Q K^T: 16 rows x BN keys per warp
+      float s[BN / 8][4];
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) {
+#pragma unroll
+        for (int np = 0; np < BN / 16; ++np) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, TL::addr(sK, 16 * np + b_row, 2 * kc + b_chunk));
+          mma_bf16(s[2 * np], aq[kc], bk[0], bk[1]);
+          mma_bf16(s[2 * np + 1], aq[kc], bk[2], bk[3]);
+        }
+      }
+
+      // online softmax in registers: s becomes p (fp32), the row's max and
+      // sum taken over the 4 lanes of its quad. Masks apply only where the
+      // tile is not visible whole to all of the warp's rows (which then all
+      // have a visible key, so none is dead).
+      auto softmax = [&](auto masked) {
+        constexpr bool MASKED = decltype(masked)::value;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int row = w0 + g + 8 * j;
+          float mx = m2[j];
+#pragma unroll
+          for (int nt = 0; nt < BN / 8; ++nt) {
+#pragma unroll
+            for (int e = 2 * j; e < 2 * j + 2; ++e) {
+              float x = s[nt][e] * scale_log2;
+              if constexpr (MASKED) {
+                const int key = kbase + nt * 8 + 2 * t + (e & 1);
+                bool ok = row < p.sq && key < p.sk;
+                if (p.causal) ok = ok && key <= row + off;
+                x = ok ? x : NEG_INF;
+              }
+              s[nt][e] = x;
+              mx = fmaxf(mx, x);
+            }
+          }
+          mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+          // a row with no visible key yet keeps m == NEG_INF; 2**0 = 1
+          // would poison it, so its p and alpha are zeroed
+          const bool dead = MASKED && mx <= NEG_INF / 2;
+          const float alpha = dead ? 0.f : exp2_approx(m2[j] - mx);
+          m2[j] = mx;
+          float sum = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < BN / 8; ++nt) {
+#pragma unroll
+            for (int e = 2 * j; e < 2 * j + 2; ++e) {
+              const float pr = dead ? 0.f : exp2_approx(s[nt][e] - mx);
+              s[nt][e] = pr;
+              sum += pr;
+            }
+          }
+          l2[j] = l2[j] * alpha + sum;
+#pragma unroll
+          for (int nt = 0; nt < D / 8; ++nt) {
+            acc[nt][2 * j] *= alpha;
+            acc[nt][2 * j + 1] *= alpha;
+          }
+        }
+      };
+      const bool whole = wrows == 16 && kbase + BN <= p.sk &&
+                         (!p.causal || kbase + BN - 1 <= w0 + off);
+      if (whole) softmax(std::false_type{});
+      else softmax(std::true_type{});
+
+      // o += P V: p rounded to bf16 is the A operand straight from the
+      // accumulators; V's B operand by ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        uint32_t a[4];
+        pack_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int np = 0; np < D / 16; ++np) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, TL::addr(sV, 16 * kk + bt_row, 2 * np + bt_chunk));
+          mma_bf16(acc[2 * np], a, b[0], b[1]);
+          mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with this stage before reuse
+  }
+  cp_async_wait<0>();
+
+  // the row sums over the quad; o = acc / l (0 for a dead row, whose acc
+  // is 0), lse = m + log(l) in natural units
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float l = l2[j];
+    l += __shfl_xor_sync(FULL, l, 1);
+    l += __shfl_xor_sync(FULL, l, 2);
+    const int r = warp * 16 + g + 8 * j;
+    if (r >= nrows) continue;
+    const int row = m0 + r;
+    const float inv = l == 0.f ? 0.f : 1.f / l;
+    uint32_t* orow = reinterpret_cast<uint32_t*>(
+        static_cast<BF*>(p.o) + (((long long)bi * p.sq + row) * p.hq + h) * D);
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      orow[(nt * 8 + 2 * t) / 2] =
+          pack_bf16(acc[nt][2 * j] * inv, acc[nt][2 * j + 1] * inv);
+    if (t == 0)
+      p.lse[((long long)bi * p.hq + h) * p.sq + row] =
+          l == 0.f ? NEG_INF : m2[j] * LN2 + logf(l);
+  }
+}
+
+// Launch the kernel, or with `config` fill config[1..5] as
+// rtt_flash_fwd_config describes instead.
+template <int D>
+cudaError_t run(const Params* p, int* config, cudaStream_t stream) {
+  using C = Cfg<D>;
+  static bool opted_in[64] = {};
+  const cudaError_t err = rtt::opt_in_smem(flash_fwd_kernel<D>, C::BYTES,
+                                           opted_in);
+  if (err != cudaSuccess) return err;
+  if (config) {
+    config[1] = C::ROWS;
+    config[2] = C::KEYS;
+    config[3] = C::THREADS;
+    config[4] = C::BYTES;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &config[5], flash_fwd_kernel<D>, C::THREADS, C::BYTES);
+  }
+  const int tiles = (p->sq + C::ROWS - 1) / C::ROWS;
+  if (tiles > MAX_GRID_Y) return cudaErrorInvalidValue;
+  const dim3 grid(p->b * p->hq, tiles);
+  flash_fwd_kernel<D><<<grid, C::THREADS, C::BYTES, stream>>>(*p);
+  return cudaGetLastError();
+}
+
+}  // namespace tcb
+
+// The one place that picks the kernel. bfloat16 calls with at least
+// TC_MIN_SQ query rows take the tensor-core kernel; float32 calls, and
+// single-row bf16 calls (decode), the CUDA-core kernel. Measured with
+// ray_tpu_torch/tools/tune_flash_fwd.py on an H100 80GB HBM3 at 700 W
+// (bf16, d 128, b 8, s_k 1024, 32 heads; PERF.md): the tensor-core kernel
+// is the faster at every row count from 1 to 64 (0.049 against 0.071 ms at
+// 1 row, 0.050 against 0.225 at 16), so every multi-row call takes it.
+// Decode keeps the CUDA-core kernel until it is redesigned for small grids.
+constexpr int TC_MIN_SQ = 2;
+
+enum Kernel { SIMT = 0, TCB = 1 };
+
+template <int D>
+cudaError_t by_kernel(int dtype, const Params* p, int sq, int* config,
+                      int* kernel, cudaStream_t stream) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  const Kernel which = dtype == 1 && sq >= TC_MIN_SQ ? TCB : SIMT;
+  if (kernel) *kernel = which;
+  if (config) {
+    config[0] = which;
+    config[6] = TC_MIN_SQ;
+  }
+  if (which == TCB) return tcb::run<D>(p, config, stream);
+  if (dtype == 0) return simt::run<float, D>(p, config, stream);
+  return simt::run<__nv_bfloat16, D>(p, config, stream);
+}
+
+cudaError_t dispatch(int dtype, int head_dim, int sq, const Params* p,
+                     int* config, int* kernel, cudaStream_t stream) {
   switch (head_dim) {
-    case 16: return launch<T, 16>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
+    case 16: return by_kernel<16>(dtype, p, sq, config, kernel, stream);
+    case 64: return by_kernel<64>(dtype, p, sq, config, kernel, stream);
+    case 128: return by_kernel<128>(dtype, p, sq, config, kernel, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -341,7 +664,10 @@ cudaError_t dispatch_d(int head_dim, const Params& p, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16. *kernel receives the kernel picked (0 =
+// CUDA cores, 1 = tensor cores), also when the launch is refused. Returns a
+// cudaError_t (0 on success); cudaErrorInvalidValue without launching when
+// sq needs more query tiles than grid.y holds.
 int rtt_flash_fwd(int dtype, int head_dim,
                   const void* q, const void* k, const void* v,
                   void* o, float* lse, const int* qoff,
@@ -349,14 +675,21 @@ int rtt_flash_fwd(int dtype, int head_dim,
                   long long q_sb, long long q_ss, long long q_sh,
                   long long k_sb, long long k_ss, long long k_sh,
                   long long v_sb, long long v_ss, long long v_sh,
-                  float scale, int causal, void* stream) {
+                  float scale, int causal, void* stream, int* kernel) {
   Params p{q, k, v, o, lse, qoff, b, sq, sk, hq, hkv,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
            scale, causal};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(head_dim, p, st);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(head_dim, p, st);
-  return cudaErrorInvalidValue;
+  return dispatch(dtype, head_dim, sq, &p, nullptr, kernel,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// The kernel a call with sq query rows takes on the current device, and its
+// tiling: out[0] the kernel (0 = CUDA cores, 1 = tensor cores), out[1]
+// query rows per block, out[2] keys per streamed tile, out[3] threads per
+// block, out[4] dynamic shared memory bytes, out[5] blocks resident per SM,
+// out[6] TC_MIN_SQ. Returns a cudaError_t.
+int rtt_flash_fwd_config(int dtype, int head_dim, int sq, int* out) {
+  return dispatch(dtype, head_dim, sq, nullptr, out, nullptr, nullptr);
 }
 
 const char* rtt_cuda_error_string(int err) {

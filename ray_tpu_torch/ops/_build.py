@@ -91,16 +91,18 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
 
 def ptxas_summary(log: str) -> Dict[str, Dict[str, int]]:
     """{"kernel<dtype,D>": {"registers": n, "spill_bytes": m}} from the
-    ``-Xptxas -v`` lines of one build's log. A kernel of flash_bwd.cu is
-    named with its namespace, which sets its dtype: tcb (bf16) or simt
-    (float), as in "tcb::flash_bwd_dq_kernel<bf16,64>"."""
+    ``-Xptxas -v`` lines of one build's log. A kernel is named with its
+    namespace, as in "tcb::flash_bwd_dq_kernel<bf16,64>". Its dtype is its
+    template argument where it has one ("simt::flash_fwd_kernel<bf16,16>"),
+    else set by the namespace: tcb (bf16) or simt (float)."""
     out, name, spill = {}, None, 0
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '.*?(?:(tcb|simt)\d+)?"
-                      r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(f)?\w*?Li"
-                      r"(\d+)E", ln)
+                      r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)"
+                      r"I(f|13__nv_bfloat16)?Li(\d+)E", ln)
         if m:
-            ns, fp32 = m.group(1), m.group(3) or m.group(1) == "simt"
+            ns, elem = m.group(1), m.group(3)
+            fp32 = elem == "f" or (elem is None and ns == "simt")
             name = (f"{ns + '::' if ns else ''}{m.group(2)}"
                     f"<{'float' if fp32 else 'bf16'},{m.group(4)}>")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",

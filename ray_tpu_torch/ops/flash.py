@@ -34,10 +34,16 @@ from ray_tpu_torch.ops.attention import NEG_INF, causal_mask
 Offset = Union[int, torch.Tensor]
 HEAD_DIMS = (16, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_SQ = 65535 * 16    # forward: grid.y holds one 16-row query tile per index
-# backward: grid.y holds one query tile (dq) or key tile (dkv) per index,
-# 16 rows in the fp32 kernels and 64 in the bf16 tensor-core kernels
+# grid.y holds one query tile per index. Forward: the C side picks the
+# kernel (bf16 with enough rows: tensor cores, "tcb"; else CUDA cores,
+# "simt", by the code it reports) and refuses a launch that needs more
+# tiles; query rows per tile of each kernel:
+FWD_KERNELS = ("simt", "tcb")
+FWD_TILE_ROWS = {"simt": 16, "tcb": 64}
+# backward: one query tile (dq) or key tile (dkv) per index, 16 rows in
+# the fp32 kernels and 64 in the bf16 tensor-core kernels
 BWD_TILE_ROWS = {torch.float32: 16, torch.bfloat16: 64}
+MAX_GRID_Y = 65535
 _fns = {}              # library name -> (launch, error_string)
 
 
@@ -90,7 +96,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # each library's launch function and its argument types
 _LAUNCH = {
     "flash_fwd": ("rtt_flash_fwd", [_I, _I] + [_P] * 6 + [_I] * 5 + [_L] * 9
-                  + [ctypes.c_float, _I, _P]),
+                  + [ctypes.c_float, _I, _P, ctypes.POINTER(_I)]),
     "flash_bwd": ("rtt_flash_bwd", [_I, _I, _I] + [_P] * 11 + [_I] * 5
                   + [_L] * 15 + [ctypes.c_float, _I, _P]),
 }
@@ -156,7 +162,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: Optional[float] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ported ``_fwd_kernel``: (o [b,sq,hq,d] in q's dtype,
-    lse [b,hq,sq] fp32). ``flash_fwd.launches`` counts kernel launches."""
+    lse [b,hq,sq] fp32). ``flash_fwd.launches`` counts kernel launches,
+    ``flash_fwd.launches_by_kernel`` splits them by the kernel the C side
+    picked ("tcb": bf16 tensor cores, "simt": CUDA cores; ``fwd_tiling``
+    says which a shape takes)."""
     _check_shapes(q, k, v)
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
@@ -172,8 +181,6 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd runs on cuda or cpu, got {q.device}")
     _check_cuda_inputs(q=q, k=k, v=v)
-    if sq > MAX_SQ:
-        raise ValueError(f"flash_fwd takes at most {MAX_SQ} queries, got {sq}")
     offs = _offsets(q_offset, b, q.device)
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -182,6 +189,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse.fill_(NEG_INF)
         return o, lse
     launch, error_string = _kernel_fns("flash_fwd")
+    picked = _I(-1)
     # the C side launches on the calling thread's current device
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -189,15 +197,43 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                      offs.data_ptr(), b, sq, sk, hq, hkv, *q.stride()[:3],
                      *k.stride()[:3], *v.stride()[:3], scale, int(causal),
-                     stream)
+                     stream, ctypes.byref(picked))
+    kernel = FWD_KERNELS[picked.value] if picked.value in (0, 1) else None
     if err:
+        if kernel and sq > MAX_GRID_Y * FWD_TILE_ROWS[kernel]:
+            raise ValueError(
+                f"flash_fwd's {kernel} kernel takes at most "
+                f"{MAX_GRID_Y * FWD_TILE_ROWS[kernel]} queries, got {sq}")
         raise RuntimeError("flash_fwd launch failed: "
                            + error_string(err).decode())
     flash_fwd.launches += 1
+    flash_fwd.launches_by_kernel[kernel] += 1
     return o, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.launches_by_kernel = dict.fromkeys(FWD_KERNELS, 0)
+
+
+def fwd_tiling(dtype: torch.dtype, head_dim: int, sq: int) -> dict:
+    """The forward kernel a call with ``sq`` query rows takes on the
+    current card, and its tiling: the kernel ("tcb" or "simt"), query rows
+    per block, keys per streamed tile, threads, dynamic shared memory
+    bytes, blocks resident per SM, and ``tc_min_sq``, the fewest bf16 rows
+    that take the tensor-core kernel."""
+    lib = _build.load("flash_fwd")
+    fn = lib.rtt_flash_fwd_config
+    fn.argtypes, fn.restype = [_I, _I, _I, ctypes.POINTER(_I)], _I
+    _, error_string = _kernel_fns("flash_fwd")
+    vals = (_I * 7)()
+    err = fn(_DTYPE_CODE[dtype], head_dim, sq, vals)
+    if err:
+        raise RuntimeError("flash_fwd config failed: "
+                           + error_string(err).decode())
+    out = dict(zip(("kernel", "block_rows", "key_tile", "threads",
+                    "smem_bytes", "blocks_per_sm", "tc_min_sq"), vals))
+    out["kernel"] = FWD_KERNELS[out["kernel"]]
+    return out
 
 
 def _p_ds(q, k, v, lse, do, delta, q_offset, causal, scale):
@@ -289,7 +325,7 @@ def _launch_bwd(which, q, k, v, o, do, lse, delta, dq, dk, dv, offs, causal,
     """One backward kernel: which 0 writes dq and delta, 1 dk and dv."""
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
-    max_seq = 65535 * BWD_TILE_ROWS[q.dtype]
+    max_seq = MAX_GRID_Y * BWD_TILE_ROWS[q.dtype]
     if max(sq, sk) > max_seq:
         raise ValueError(f"flash attention's backward takes at most {max_seq}"
                          f" queries and keys in {q.dtype}, got {sq} and {sk}")

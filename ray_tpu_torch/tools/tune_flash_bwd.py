@@ -14,15 +14,14 @@ Prints one JSON line per variant build (registers, spills) and per timing.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import json
-import subprocess
 import tempfile
 from pathlib import Path
 
 import torch
 
-from ray_tpu_torch.ops import _build, flash
+from ray_tpu_torch.ops import flash
+from ray_tpu_torch.tools._tune import (build_variants, device_ms, emitter,
+                                       nvidia_smi)
 
 # name: {text in csrc/flash_bwd.cu: replacement}
 VARIANTS = {
@@ -55,64 +54,6 @@ SHAPES = {"train_1b_d64_gqa": (4, 2048, 2048, 32, 4, 64),
           "train_7b_d128": (1, 2048, 2048, 32, 32, 128)}
 
 
-def device_ms(fn, iters=10):
-    """Device time per call: ``iters`` calls in one CUDA graph, replayed
-    between CUDA events."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def build_variants(out_dir: Path):
-    """{name: (launch, error_string, ptxas summary)}, one library each."""
-    src = (_build.CSRC / "flash_bwd.cu").read_text()
-    for header in _build.CSRC.glob("*.cuh"):
-        (out_dir / header.name).write_text(header.read_text())
-    procs = {}
-    for name, subs in VARIANTS.items():
-        text = src
-        for old, new in subs.items():
-            if old not in text:
-                raise ValueError(f"{name}: {old!r} is not in flash_bwd.cu")
-            text = text.replace(old, new)
-        (out_dir / f"{name}.cu").write_text(text)
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-               str(out_dir / f"{name}.so"), str(out_dir / f"{name}.cu")]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.PIPE, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"{name}: nvcc exit {proc.returncode}\n{err}")
-        regs = {k: v for k, v in _build.ptxas_summary(err).items()
-                if k.startswith("tcb::")}
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        launch = lib.rtt_flash_bwd
-        launch.argtypes = flash._LAUNCH["flash_bwd"][1]
-        launch.restype = ctypes.c_int
-        lib.rtt_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.rtt_cuda_error_string.restype = ctypes.c_char_p
-        libs[name] = (launch, lib.rtt_cuda_error_string, regs)
-    return libs
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--jsonl", type=Path, default=None,
@@ -120,19 +61,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("tune_flash_bwd: no CUDA device")
-
-    def emit(obj):
-        line = json.dumps(obj)
-        print(line, flush=True)
-        if args.jsonl is not None:
-            with args.jsonl.open("a") as f:
-                f.write(line + "\n")
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    emit({"nvidia_smi": smi})
-    libs = build_variants(Path(tempfile.mkdtemp()))
+    emit = emitter(args.jsonl)
+    emit({"nvidia_smi": nvidia_smi()})
+    libs = build_variants("flash_bwd", VARIANTS, Path(tempfile.mkdtemp()))
     for name, (_, _, regs) in libs.items():
         emit({"variant": name, "ptxas": regs})
     shipped = flash._kernel_fns("flash_bwd")

@@ -1,0 +1,124 @@
+"""Time tilings of the bf16 tensor-core forward kernel, and where it
+overtakes the CUDA-core kernel, on one GPU.
+
+    python3 -m ray_tpu_torch.tools.tune_flash_fwd [--jsonl PATH]
+
+Builds ``csrc/flash_fwd.cu`` once per variant, each a text substitution in
+its ``tcb::Cfg`` tile sizes or in the dispatch, all nvcc processes at once.
+Then:
+- tiles: at the 1b train shape (b 4, s 2048, 32/4 heads, d 64), at 7b's
+  d 128 (b 1, s 2048, 32/32 heads) and at 7b prefill (b 1, s 512), each
+  tiling variant's forward is checked against the plain version (o, lse)
+  and timed by CUDA-graph replay, in the order of the list and then
+  reversed;
+- crossover: at bf16, d 128, 32/32 heads, b 8 and s_k 1024, with the query
+  rows at the end of the keys (offset s_k - s_q, as a cached prefill or a
+  decode chunk), the "all_tcb" and "all_simt" variants (every bf16 call to
+  one kernel) are timed at s_q in CROSSOVER_SQ, in turns.
+Prints one JSON line per variant build (registers, spills) and per timing.
+"""
+
+from __future__ import annotations
+
+import argparse
+import tempfile
+from pathlib import Path
+
+import torch
+
+from ray_tpu_torch.ops import flash
+from ray_tpu_torch.tools._tune import (build_variants, device_ms, emitter,
+                                       nvidia_smi)
+
+# name: {text in csrc/flash_fwd.cu: replacement}
+VARIANTS = {
+    "shipped": {},
+    # 8 warps of 16 rows (at d 16 a 64-key tile has fewer 16-byte chunks
+    # than 256 threads)
+    "rows128": {"static constexpr int ROWS = 64;":
+                "static constexpr int ROWS = D >= 64 ? 128 : 64;"},
+    "keys128_d64": {"static constexpr int KEYS = 64;":
+                    "static constexpr int KEYS = D == 64 ? 128 : 64;"},
+    "keys32_d128": {"static constexpr int KEYS = 64;":
+                    "static constexpr int KEYS = D == 128 ? 32 : 64;"},
+    # 4 blocks an SM at d 64: at most 128 registers a thread
+    "4blocks_d64": {"__launch_bounds__(Cfg<D>::THREADS)":
+                    "__launch_bounds__(Cfg<D>::THREADS, D == 64 ? 4 : 1)"},
+    # the dispatch: every bf16 call to one kernel
+    "all_tcb": {"dtype == 1 && sq >= TC_MIN_SQ": "dtype == 1"},
+    "all_simt": {"dtype == 1 && sq >= TC_MIN_SQ": "false"},
+}
+TILE_VARIANTS = ("shipped", "rows128", "keys128_d64", "keys32_d128",
+                 "4blocks_d64")
+SHAPES = {"train_1b_d64_gqa": (4, 2048, 2048, 32, 4, 64),
+          "train_7b_d128": (1, 2048, 2048, 32, 32, 128),
+          "prefill_7b": (1, 512, 512, 32, 32, 128)}
+CROSSOVER_SQ = (1, 2, 4, 8, 16, 32, 64)
+CROSSOVER_SHAPE = (8, 1024, 32, 32, 128)   # b, sk, hq, hkv, d
+
+
+def _inputs(g, b, sq, sk, hq, hkv, d):
+    rnd = lambda *s: torch.randn(s, generator=g,
+                                 device="cuda").to(torch.bfloat16)
+    return rnd(b, sq, hq, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d)
+
+
+def _errors(o, lse, ro, rlse):
+    return {"o_max_abs": float((o.float() - ro.float()).abs().max()),
+            "lse_max_abs": float((lse - rlse).abs().max())}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--jsonl", type=Path, default=None,
+                    help="also append every line to this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("tune_flash_fwd: no CUDA device")
+    emit = emitter(args.jsonl)
+    emit({"nvidia_smi": nvidia_smi()})
+    libs = build_variants("flash_fwd", VARIANTS, Path(tempfile.mkdtemp()))
+    for name, (_, _, regs) in libs.items():
+        emit({"variant": name, "ptxas": regs})
+    shipped = flash._kernel_fns("flash_fwd")
+    g = torch.Generator(device="cuda").manual_seed(4321)
+
+    def run(name, q, k, v, offs):
+        flash._fns["flash_fwd"] = libs[name][:2]
+        return flash.flash_fwd(q, k, v, offs)
+
+    try:
+        for shape, (b, sq, sk, hq, hkv, d) in SHAPES.items():
+            q, k, v = _inputs(g, b, sq, sk, hq, hkv, d)
+            offs = torch.zeros((b,), dtype=torch.int32, device="cuda")
+            ro, rlse = flash.flash_fwd_reference(q, k, v, offs)
+            order = list(TILE_VARIANTS)
+            for rep, names in enumerate((order, order[::-1])):
+                for name in names:
+                    o, lse = run(name, q, k, v, offs)
+                    emit({"shape": shape, "pass": rep, "variant": name,
+                          "ms": device_ms(lambda: run(name, q, k, v, offs)),
+                          "err": _errors(o, lse, ro, rlse)})
+            del q, k, v, ro, rlse, o, lse
+            torch.cuda.empty_cache()
+
+        b, sk, hq, hkv, d = CROSSOVER_SHAPE
+        for sq in CROSSOVER_SQ:
+            q, k, v = _inputs(g, b, sq, sk, hq, hkv, d)
+            offs = torch.full((b,), sk - sq, dtype=torch.int32, device="cuda")
+            ro, rlse = flash.flash_fwd_reference(q, k, v, offs)
+            for rep, name in enumerate(("all_simt", "all_tcb", "all_tcb",
+                                        "all_simt")):
+                o, lse = run(name, q, k, v, offs)
+                emit({"crossover_sq": sq, "pass": rep, "variant": name,
+                      "shape": {"b": b, "sk": sk, "hq": hq, "hkv": hkv,
+                                "d": d, "offset": sk - sq},
+                      "ms": device_ms(lambda: run(name, q, k, v, offs), 20),
+                      "err": _errors(o, lse, ro, rlse)})
+    finally:
+        flash._fns["flash_fwd"] = shipped
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,5 +1,6 @@
-"""The CUDA flash kernels (forward; backward dq and dkv) against their
-plain PyTorch versions, on the card. Marked ``cuda``: each test skips where no CUDA device is present
+"""The CUDA flash kernels (forward on the CUDA cores and on the bf16
+tensor cores; backward dq and dkv) against their plain PyTorch versions,
+on the card. Marked ``cuda``: each test skips where no CUDA device is present
 (run on a GPU host with ``python -m pytest tests/test_torch_flash_cuda.py
 -m cuda``). Imports no jax, so it runs where jax is not installed.
 
@@ -43,30 +44,98 @@ CASES = {
     "short_s5": (2, 5, 40, 8, 2, 64, True, 30),
     "short_s3": (3, 3, 64, 4, 4, 16, True, 50),
     "masked": (2, 96, 96, 4, 2, 16, True, -1000),
+    # one short of and one past the bf16 tensor-core kernel's 64-row tiles
+    "d64_s63": (2, 63, 63, 4, 2, 64, True, 0),
+    "d64_s65": (2, 65, 65, 4, 2, 64, True, 0),
+    "d128_s129": (1, 129, 129, 4, 2, 128, True, 0),
+    "d128_gqa8": (1, 130, 130, 8, 1, 128, True, 0),
+    "d128_per_row": (3, 100, 100, 8, 2, 128, True, [-30, 5, 64]),
+    # every row's diagonal cuts key tile [128, 192)
+    "d64_sq40_sk300_offset100": (2, 40, 300, 8, 2, 64, True, 100),
 }
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_kernel_matches_plain(cuda, name, dtype):
-    b, sq, sk, hq, hkv, d, causal, off = CASES[name]
-    g = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+def _fwd_inputs(device, case, dtype, seed):
+    b, sq, sk, hq, hkv, d, causal, off = case
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g, device=device).to(dtype)
                for shape in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d)))
     if off is None:   # per-row positions, as the engine's batched decode
-        off = torch.randint(0, sk, (b,), generator=g, device=cuda,
+        off = torch.randint(0, sk, (b,), generator=g, device=device,
                             dtype=torch.int32)
-    before = tflash.flash_fwd.launches
+    elif isinstance(off, list):
+        off = torch.tensor(off, dtype=torch.int32, device=device)
+    return q, k, v, off, causal
+
+
+def _check_fwd(q, k, v, off, causal):
+    """One launch on the kernel ``fwd_tiling`` names, held against the
+    plain version."""
+    kernel = tflash.fwd_tiling(q.dtype, q.shape[-1], q.shape[1])["kernel"]
+    before = (tflash.flash_fwd.launches,
+              tflash.flash_fwd.launches_by_kernel[kernel])
     o, lse = tflash.flash_fwd(q, k, v, off, causal=causal)
     torch.cuda.synchronize()
-    assert tflash.flash_fwd.launches == before + 1
+    assert (tflash.flash_fwd.launches,
+            tflash.flash_fwd.launches_by_kernel[kernel]) == tuple(
+                n + 1 for n in before)
     ref_o, ref_lse = tflash.flash_fwd_reference(q, k, v, off, causal=causal)
-    if dtype == torch.float32:
+    if q.dtype == torch.float32:
         torch.testing.assert_close(o, ref_o, atol=1e-4, rtol=0)
     else:
         torch.testing.assert_close(o.float(), ref_o.float(), atol=2e-2,
                                    rtol=2e-2)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    return kernel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_kernel_matches_plain(cuda, name, dtype):
+    _check_fwd(*_fwd_inputs(cuda, CASES[name], dtype, seed=0))
+
+
+def test_fwd_dispatch_threshold(cuda):
+    """bf16 takes the tensor-core kernel from ``tc_min_sq`` query rows up
+    and the CUDA-core kernel below; float32 always the CUDA-core one. Both
+    sides of the threshold match the plain version (d 128, s_k 1024, the
+    rows at the end of the keys)."""
+    tc_min = tflash.fwd_tiling(torch.bfloat16, 128, 1)["tc_min_sq"]
+    for sq, dtype, want in ((tc_min - 1, torch.bfloat16, "simt"),
+                            (tc_min, torch.bfloat16, "tcb"),
+                            (tc_min, torch.float32, "simt")):
+        if sq < 1:
+            continue
+        case = (2, sq, 1024, 8, 8, 128, True, 1024 - sq)
+        assert _check_fwd(*_fwd_inputs(cuda, case, dtype, seed=5)) == want
+
+
+def test_fwd_refuses_more_query_tiles_than_the_grid_holds(cuda):
+    """The C side refuses, without launching, a call whose query tiles
+    overflow grid.y; the wrapper raises and counts no launch."""
+    rows = tflash.FWD_TILE_ROWS["simt"]
+    sq = tflash.MAX_GRID_Y * rows + 1
+    q = torch.zeros((1, sq, 1, 16), device=cuda)
+    k = v = torch.zeros((1, 1, 1, 16), device=cuda)
+    assert tflash.fwd_tiling(q.dtype, 16, sq)["block_rows"] == rows
+    before = tflash.flash_fwd.launches
+    with pytest.raises(ValueError, match="simt kernel takes at most"):
+        tflash.flash_fwd(q, k, v)
+    assert tflash.flash_fwd.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["d64_s65", "d128_gqa8", "d128_per_row",
+                                  "decode_rows"])
+def test_fwd_kernels_are_deterministic(cuda, name, dtype):
+    """Each row is summed by one warp in a fixed order: two launches give
+    the same bits."""
+    q, k, v, off, causal = _fwd_inputs(cuda, CASES[name], dtype, seed=3)
+    first = tflash.flash_fwd(q, k, v, off, causal=causal)
+    second = tflash.flash_fwd(q, k, v, off, causal=causal)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 BWD_CASES = {
