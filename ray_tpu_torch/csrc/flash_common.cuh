@@ -1,6 +1,6 @@
 // Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// the masking constant, packed-element access for fp32 and bf16, and warp
-// reductions.
+// the masking constant, fp32 element access through 32-bit words, and
+// warp reductions.
 
 #pragma once
 
@@ -13,7 +13,7 @@ namespace rtt {
 constexpr float NEG_INF = -1073741824.0f;  // -2**30, as in ops/attention.py
 constexpr unsigned FULL = 0xffffffffu;
 
-// A 32-bit word holds 1 float or 2 bf16 (element 2i in the low half).
+// A 32-bit word holds one float (the CUDA-core kernels are float-only).
 template <typename T> struct Elem;
 
 template <> struct Elem<float> {
@@ -23,21 +23,6 @@ template <> struct Elem<float> {
   }
   __device__ static float round(float x) { return x; }
   __device__ static uint32_t pack(const float* x) { return __float_as_uint(x[0]); }
-};
-
-template <> struct Elem<__nv_bfloat16> {
-  static constexpr int PER_WORD = 2;
-  __device__ static void unpack(uint32_t w, float* out) {
-    out[0] = __uint_as_float(w << 16);
-    out[1] = __uint_as_float(w & 0xffff0000u);
-  }
-  __device__ static float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-  __device__ static uint32_t pack(const float* x) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(x[0], x[1]);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
 };
 
 __device__ __forceinline__ float warp_max(float x) {

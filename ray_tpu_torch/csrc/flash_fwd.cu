@@ -22,8 +22,8 @@
 //   every key of the row is read once for a handful of FLOPs. What counts
 //   there is how many loads are in flight, not which unit multiplies.
 //
-// Two kernels; rtt_flash_fwd picks one (dispatch, at the end of the file):
-// - tcb (bfloat16, s_q >= TC_MIN_SQ): the tensor-core kernel. One block
+// Three kernels; rtt_flash_fwd picks one (pick, at the end of the file):
+// - tcb (bfloat16 beyond decode): the tensor-core kernel. One block
 //   per (batch * q-head, 64 query rows), 4 warps of 16 rows. The Q tile is
 //   loaded once with cp.async into a swizzled shared tile (tensor_core.cuh)
 //   and held as mma A fragments in registers; K/V tiles of 64 keys are
@@ -36,14 +36,31 @@
 //   warp skips the tiles past its own rows' diagonal and the masks of a
 //   tile it sees whole; the last query tiles, which see the most keys, are
 //   launched first.
-// - simt (float32, and single-row bfloat16): the CUDA-core kernel.
+// - dec (bfloat16 decode: s_q <= DEC_MAX_SQ and s_q * group <= 16): the
+//   split-KV kernel, built for the bytes bound. One block per (batch *
+//   kv-head, key chunk): its rows are the GQA group's q heads x s_q, packed
+//   into one 16-row mma tile, so each K/V byte is read once per kv head and
+//   not once per q head. The chunks are whole 64-key tiles; their count
+//   (splits, grid.y) is set by the wrapper from (b, hkv, s_k, SM count)
+//   alone, never from positions, so that a b 1 call still covers the card
+//   (and a CUDA graph can hold the launch). Each block clips its chunk to
+//   its row's causal end, read on the device, and streams its tiles
+//   through STAGES cp.async stages; its 4 warps take 16 keys of every tile
+//   each (mma.sync for both products, as tcb) and merge their (m, l, acc)
+//   in shared memory at the end. With one split the block writes o and
+//   lse; with more, each writes (o_i normalised in fp32, lse_i) to the
+//   wrapper's scratch and a second kernel, launched by the same call as a
+//   programmatic dependent (its launch overlaps the first kernel's tail),
+//   merges the splits in a fixed order (JAX's context._merge over n
+//   partials), so two launches give the same bits.
+// - simt (float32): the CUDA-core kernel.
 //   One block per (batch * q-head, 16 query rows), 4 warps of 4 rows, each
 //   warp streaming private 32-key tiles through shared memory with 16-byte
 //   loads. Each warp's K loop stops at its rows' causal diagonal, so a
 //   decode row at position p reads p + 1 keys, not max_len; when a block
 //   holds fewer than 16 rows (decode), its four warps split the key tiles
 //   and merge their (m, l, acc) at the end, so all four stream K/V.
-// Both give dead rows (no visible key) o = 0 and lse = NEG_INF, and repeat
+// All give dead rows (no visible key) o = 0 and lse = NEG_INF, and repeat
 // their bits from launch to launch.
 
 #include <type_traits>
@@ -69,16 +86,21 @@ struct Params {
   long long v_sb, v_ss, v_sh;
   float scale;
   int causal;
+  // dec only: key chunks (grid.y), keys per chunk (set by dec::run), and
+  // with splits > 1 the fp32 scratch: o_i [splits, b, hq, sq, d], then
+  // lse_i [splits, b, hq, sq]
+  int splits, chunk;
+  float* scratch;
 };
 
 // grid.y holds one query tile per index
 constexpr int MAX_GRID_Y = 65535;
 
 // ---------------------------------------------------------------- simt
-// CUDA-core kernel: float32, and bfloat16 calls of fewer than TC_MIN_SQ rows.
+// CUDA-core kernel, float32 only.
 namespace simt {
 
-using rtt::Elem;
+using Elem = rtt::Elem<float>;
 using rtt::warp_max;
 using rtt::warp_sum;
 
@@ -87,9 +109,9 @@ constexpr int ROWS = 4;             // query rows per warp
 constexpr int BQ = WARPS * ROWS;    // query rows per block
 constexpr int BK = 32;              // keys per tile: one per lane
 
-template <typename T, int D>
+template <int D>
 struct Shape {
-  static constexpr int PW = Elem<T>::PER_WORD;
+  static constexpr int PW = Elem::PER_WORD;
   static constexpr int WPR = D / PW;                       // words per row
   static constexpr int KS = (WPR % 2) ? WPR : WPR + 1;     // odd: no bank conflicts
   static constexpr int CPR = WPR / 4;                      // 16-byte chunks per row
@@ -107,10 +129,10 @@ struct Shape {
   static_assert(WARPS * ROWS * (D + 2) <= WARPS * WARP_WORDS, "merge fits");
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_fwd_kernel(const Params p) {
-  using S = Shape<T, D>;
+  using S = Shape<D>;
   constexpr int PW = S::PW, WPR = S::WPR, KS = S::KS, CPR = S::CPR;
   constexpr int NWV = S::NWV;
   extern __shared__ __align__(16) uint32_t smem[];
@@ -133,9 +155,9 @@ flash_fwd_kernel(const Params p) {
   uint32_t* vt = kt + S::K_WORDS;
   float* qs = reinterpret_cast<float*>(vt + S::V_WORDS);
 
-  const T* qb = static_cast<const T*>(p.q) + bi * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + bi * p.k_sb + hk * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + bi * p.v_sb + hk * p.v_sh;
+  const float* qb = static_cast<const float*>(p.q) + bi * p.q_sb + h * p.q_sh;
+  const float* kb = static_cast<const float*>(p.k) + bi * p.k_sb + hk * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + bi * p.v_sb + hk * p.v_sh;
 
   // this warp's query rows, unpacked to fp32 (zeros past the last row)
 #pragma unroll
@@ -146,7 +168,7 @@ flash_fwd_kernel(const Params p) {
       if (r < nr)
         word = __ldg(reinterpret_cast<const uint32_t*>(
             qb + (long long)(r0 + r) * p.q_ss) + w);
-      Elem<T>::unpack(word, x);
+      Elem::unpack(word, x);
 #pragma unroll
       for (int e = 0; e < PW; ++e) qs[r * D + w * PW + e] = x[e];
     }
@@ -208,7 +230,7 @@ flash_fwd_kernel(const Params p) {
 #pragma unroll 8
     for (int w = 0; w < WPR; ++w) {
       float kv[PW];
-      Elem<T>::unpack(krow[w], kv);
+      Elem::unpack(krow[w], kv);
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
 #pragma unroll
@@ -233,7 +255,7 @@ flash_fwd_kernel(const Params p) {
       const float pr = dead ? 0.f : expf(sr - m_new);
       l[r] = l[r] * alpha + warp_sum(pr);
       m[r] = m_new;
-      pv[r] = Elem<T>::round(pr);
+      pv[r] = Elem::round(pr);
 #pragma unroll
       for (int i = 0; i < NWV * PW; ++i) acc[r][i] *= alpha;
     }
@@ -249,7 +271,7 @@ flash_fwd_kernel(const Params p) {
         const int w = lane + 32 * i;
         if (w < WPR) {
           float vv[PW];
-          Elem<T>::unpack(vt[j * WPR + w], vv);
+          Elem::unpack(vt[j * WPR + w], vv);
 #pragma unroll
           for (int r = 0; r < ROWS; ++r) {
 #pragma unroll
@@ -324,7 +346,7 @@ flash_fwd_kernel(const Params p) {
     const int row = r0 + r;
     const float l_safe = l[r] == 0.f ? 1.f : l[r];
     const long long obase = (((long long)bi * p.sq + row) * p.hq + h) * D;
-    uint32_t* orow = reinterpret_cast<uint32_t*>(static_cast<T*>(p.o) + obase);
+    uint32_t* orow = reinterpret_cast<uint32_t*>(static_cast<float*>(p.o) + obase);
 #pragma unroll
     for (int i = 0; i < NWV; ++i) {
       const int w = lane + 32 * i;
@@ -332,7 +354,7 @@ flash_fwd_kernel(const Params p) {
         float x[PW];
 #pragma unroll
         for (int e = 0; e < PW; ++e) x[e] = acc[r][i * PW + e] / l_safe;
-        orow[w] = Elem<T>::pack(x);
+        orow[w] = Elem::pack(x);
       }
     }
     if (lane == 0)
@@ -343,11 +365,11 @@ flash_fwd_kernel(const Params p) {
 
 // Launch the kernel, or with `config` fill config[1..5] as
 // rtt_flash_fwd_config describes instead.
-template <typename T, int D>
+template <int D>
 cudaError_t run(const Params* p, int* config, cudaStream_t stream) {
-  using S = Shape<T, D>;
+  using S = Shape<D>;
   static bool opted_in[64] = {};
-  cudaError_t err = rtt::opt_in_smem(flash_fwd_kernel<T, D>, S::BYTES,
+  cudaError_t err = rtt::opt_in_smem(flash_fwd_kernel<D>, S::BYTES,
                                      opted_in);
   if (err != cudaSuccess) return err;
   if (config) {
@@ -356,12 +378,12 @@ cudaError_t run(const Params* p, int* config, cudaStream_t stream) {
     config[3] = WARPS * 32;
     config[4] = S::BYTES;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &config[5], flash_fwd_kernel<T, D>, WARPS * 32, S::BYTES);
+        &config[5], flash_fwd_kernel<D>, WARPS * 32, S::BYTES);
   }
   const int tiles = (p->sq + BQ - 1) / BQ;
   if (tiles > MAX_GRID_Y) return cudaErrorInvalidValue;
   const dim3 grid(p->b * p->hq, tiles);
-  flash_fwd_kernel<T, D><<<grid, WARPS * 32, S::BYTES, stream>>>(*p);
+  flash_fwd_kernel<D><<<grid, WARPS * 32, S::BYTES, stream>>>(*p);
   return cudaGetLastError();
 }
 
@@ -623,39 +645,424 @@ cudaError_t run(const Params* p, int* config, cudaStream_t stream) {
 
 }  // namespace tcb
 
-// The one place that picks the kernel. bfloat16 calls with at least
-// TC_MIN_SQ query rows take the tensor-core kernel; float32 calls, and
-// single-row bf16 calls (decode), the CUDA-core kernel. Measured with
-// ray_tpu_torch/tools/tune_flash_fwd.py on an H100 80GB HBM3 at 700 W
-// (bf16, d 128, b 8, s_k 1024, 32 heads; PERF.md): the tensor-core kernel
-// is the faster at every row count from 1 to 64 (0.049 against 0.071 ms at
-// 1 row, 0.050 against 0.225 at 16), so every multi-row call takes it.
-// Decode keeps the CUDA-core kernel until it is redesigned for small grids.
-constexpr int TC_MIN_SQ = 2;
+// ---------------------------------------------------------------- dec
+// Decode kernel (bf16, s_q * group <= 16 rows): split-KV. One block per
+// (batch * kv-head, key chunk); Q (the GQA group's rows) is one 16-row mma
+// tile, K/V tiles of 64 keys stream through STAGES cp.async stages, and
+// each of the 4 warps takes 16 keys of every tile. The shipped dispatch
+// (DEC_MAX_SQ = 1) gives it one query row per q head; the handling of
+// s_q > 1 (row r is query r / group, each row its own causal end) serves
+// only the "dec" variant of tools/tune_flash_fwd.py (DEC_MAX_SQ = 16),
+// whose crossover against tcb is the measurement behind DEC_MAX_SQ.
+namespace dec {
 
-enum Kernel { SIMT = 0, TCB = 1 };
+using namespace rtt::tc;
+using BF = __nv_bfloat16;
+using tcb::exp2_approx;
+using tcb::LN2;
+using tcb::LOG2E;
+
+constexpr int ROWS = 16;             // a block's rows: group x s_q, padded
+constexpr int KEYS = 64;             // keys per streamed tile
+constexpr int WARPS = 4;             // 16 keys of every tile each
+constexpr int THREADS = WARPS * 32;
+// K/V tiles in flight: the next STAGES - 1 tiles load while one is used.
+// Measured at the decode shapes (tools/tune_flash_fwd.py, PERF.md): 2
+// stages within 4 % of 3, 4 stages up to 8 % slower.
+constexpr int STAGES = 3;
+// The merge launches as a programmatic dependent of the kernel (run): up
+// to 1 us less a split call at the decode shapes than a plain launch.
+constexpr int PDL = 1;
 
 template <int D>
-cudaError_t by_kernel(int dtype, const Params* p, int sq, int* config,
-                      int* kernel, cudaStream_t stream) {
-  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
-  const Kernel which = dtype == 1 && sq >= TC_MIN_SQ ? TCB : SIMT;
-  if (kernel) *kernel = which;
-  if (config) {
-    config[0] = which;
-    config[6] = TC_MIN_SQ;
-  }
-  if (which == TCB) return tcb::run<D>(p, config, stream);
-  if (dtype == 0) return simt::run<float, D>(p, config, stream);
-  return simt::run<__nv_bfloat16, D>(p, config, stream);
+struct Cfg {
+  static constexpr int Q_BYTES = ROWS * D * 2;
+  static constexpr int KV_BYTES = KEYS * D * 2;   // one K or one V tile
+  static constexpr int STAGE_BYTES = STAGES * 2 * KV_BYTES;
+  static constexpr int BYTES = Q_BYTES + STAGE_BYTES;
+  // the warps' (m, l, acc) for their merge, in the stages once drained
+  static constexpr int MERGE_BYTES = WARPS * ROWS * (D + 2) * 4;
+  static_assert(MERGE_BYTES <= STAGE_BYTES, "the merge fits the stages");
+};
+
+// Whole 64-key tiles per chunk, or 0 when `splits` chunks of whole tiles
+// cannot cover [0, sk) with none of them empty (ops/flash.py:decode_chunk).
+inline int chunk_tiles(int sk, int splits) {
+  const int tiles = (sk + KEYS - 1) / KEYS;
+  if (splits < 1 || splits > tiles) return 0;
+  const int per = (tiles + splits - 1) / splits;
+  return (tiles + per - 1) / per == splits ? per : 0;
 }
 
-cudaError_t dispatch(int dtype, int head_dim, int sq, const Params* p,
-                     int* config, int* kernel, cudaStream_t stream) {
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_kernel(const Params p) {
+  using C = Cfg<D>;
+  using TL = Tile<D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  // the merge's blocks may be scheduled once every block here has started;
+  // they wait for this grid's writes (griddepcontrol.wait)
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bi = blockIdx.x / p.hkv, hk = blockIdx.x % p.hkv;
+  const int split = blockIdx.y;
+  const int group = p.hq / p.hkv;
+  // row r of the tile: query r / group of q head hk * group + r % group
+  const int nrows = group * p.sq;
+  const int off = p.qoff[bi];
+
+  // keys of this block: its chunk [lo, lo + chunk), clipped to the keys
+  // and to the rows' causal end (off + sq, read here on the device)
+  const int lo = split * p.chunk;
+  int hi = min(p.sk, lo + p.chunk);
+  if (p.causal) hi = min(hi, off + p.sq);
+  const int ntiles = hi > lo ? (hi - lo + KEYS - 1) / KEYS : 0;
+
+  const uint32_t sQ = smem_addr(smem);
+  const uint32_t sKV = sQ + C::Q_BYTES;   // stage s: K at + 2s KV_BYTES, V after
+  const BF* kb = static_cast<const BF*>(p.k) + bi * p.k_sb + hk * p.k_sh;
+  const BF* vb = static_cast<const BF*>(p.v) + bi * p.v_sb + hk * p.v_sh;
+
+  auto load_kv = [&](int tile) {
+    if (tile < ntiles) {
+      const uint32_t stage = sKV + (tile % STAGES) * 2 * C::KV_BYTES;
+      const int k0 = lo + tile * KEYS;
+      load_tile_async<D, KEYS, THREADS>(stage, kb + (long long)k0 * p.k_ss,
+                                        p.k_ss, hi - k0, tid);
+      load_tile_async<D, KEYS, THREADS>(stage + C::KV_BYTES,
+                                        vb + (long long)k0 * p.v_ss, p.v_ss,
+                                        hi - k0, tid);
+    }
+    cp_async_commit();   // empty past the last tile: the group count holds
+  };
+
+  // the Q tile (rows past nrows zero-filled), then the first tiles
+  if (ntiles > 0) {
+    const BF* qb = static_cast<const BF*>(p.q) + bi * p.q_sb +
+                   (long long)hk * group * p.q_sh;
+    for (int idx = tid; idx < ROWS * TL::CHUNKS; idx += THREADS) {
+      const int r = idx / TL::CHUNKS, c = idx % TL::CHUNKS;
+      const bool ok = r < nrows;
+      const BF* src = qb + (ok ? (r / group) * p.q_ss + (r % group) * p.q_sh +
+                                     c * 8 : 0);
+      cp_async_16(TL::addr(sQ, r, c), src, ok);
+    }
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) load_kv(s);
+  cp_async_wait<STAGES - 1>();   // Q has landed (this thread's copies)
+  __syncthreads();               // ... and every other thread's
+
+  const int a_row = lane & 15, a_chunk = lane >> 4;
+  const int b_row = ((lane >> 4) << 3) + (lane & 7), b_chunk = (lane >> 3) & 1;
+  const int bt_row = (((lane >> 3) & 1) << 3) + (lane & 7), bt_chunk = lane >> 4;
+  uint32_t aq[D / 16][4];
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc)
+    ldmatrix_x4(aq[kc], TL::addr(sQ, a_row, 2 * kc + a_chunk));
+
+  // this lane's rows g and g + 8: the last key each sees; every row sees
+  // the keys below whole_end
+  int last[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    last[j] = p.causal ? min(hi - 1, (g + 8 * j) / group + off) : hi - 1;
+  const int whole_end = p.causal ? min(hi, off + 1) : hi;
+
+  float m2[2] = {NEG_INF, NEG_INF}, l2[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const float scale_log2 = p.scale * LOG2E;
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    cp_async_wait<STAGES - 2>();   // this tile's K/V (this thread's copies)
+    __syncthreads();               // ... and all; the stage of tile - 1 is free
+    load_kv(tile + STAGES - 1);
+    const int kw = lo + tile * KEYS + warp * 16;   // this warp's 16 keys
+    if (kw < hi) {
+      const uint32_t sK = sKV + (tile % STAGES) * 2 * C::KV_BYTES;
+      const uint32_t sV = sK + C::KV_BYTES;
+
+      // s = Q K^T: 16 rows x 16 keys
+      float s[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, TL::addr(sK, 16 * warp + b_row, 2 * kc + b_chunk));
+        mma_bf16(s[0], aq[kc], bk[0], bk[1]);
+        mma_bf16(s[1], aq[kc], bk[2], bk[3]);
+      }
+
+      // online softmax as in tcb; masks only where an edge cuts the keys
+      auto softmax = [&](auto masked) {
+        constexpr bool MASKED = decltype(masked)::value;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float mx = m2[j];
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+            for (int e = 2 * j; e < 2 * j + 2; ++e) {
+              float x = s[nt][e] * scale_log2;
+              if constexpr (MASKED) {
+                const int key = kw + nt * 8 + 2 * t + (e & 1);
+                x = key <= last[j] ? x : NEG_INF;
+              }
+              s[nt][e] = x;
+              mx = fmaxf(mx, x);
+            }
+          }
+          mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+          // a row with no visible key yet keeps m == NEG_INF; its p and
+          // alpha are zeroed
+          const bool dead = MASKED && mx <= NEG_INF / 2;
+          const float alpha = dead ? 0.f : exp2_approx(m2[j] - mx);
+          m2[j] = mx;
+          float sum = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+            for (int e = 2 * j; e < 2 * j + 2; ++e) {
+              const float pr = dead ? 0.f : exp2_approx(s[nt][e] - mx);
+              s[nt][e] = pr;
+              sum += pr;
+            }
+          }
+          l2[j] = l2[j] * alpha + sum;
+#pragma unroll
+          for (int nt = 0; nt < D / 8; ++nt) {
+            acc[nt][2 * j] *= alpha;
+            acc[nt][2 * j + 1] *= alpha;
+          }
+        }
+      };
+      if (kw + 16 <= whole_end) softmax(std::false_type{});
+      else softmax(std::true_type{});
+
+      // o += P V: p rounded to bf16 as the A operand, V by ldmatrix.trans
+      uint32_t a[4];
+      pack_a(a, s[0], s[1]);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, TL::addr(sV, 16 * warp + bt_row, 2 * np + bt_chunk));
+        mma_bf16(acc[2 * np], a, b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // every warp is done with the stages: reuse them
+
+  // the warps merge their (m, l, acc): m in log2 units, l summed over the
+  // quad first
+  float* mw = reinterpret_cast<float*>(smem + C::Q_BYTES);   // [WARPS][ROWS]
+  float* lw = mw + WARPS * ROWS;                              // [WARPS][ROWS]
+  float* aw = lw + WARPS * ROWS;                              // [WARPS][ROWS][D]
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float l = l2[j];
+    l += __shfl_xor_sync(FULL, l, 1);
+    l += __shfl_xor_sync(FULL, l, 2);
+    const int r = warp * ROWS + g + 8 * j;
+    if (t == 0) {
+      mw[r] = m2[j];
+      lw[r] = l;
+    }
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<float2*>(aw + r * D + nt * 8 + 2 * t) =
+          make_float2(acc[nt][2 * j], acc[nt][2 * j + 1]);
+  }
+  __syncthreads();
+
+  // each thread: 4 columns of a row. o = acc / l (0 for a dead row), lse =
+  // m + log(l) in natural units (NEG_INF for a dead row)
+  constexpr int C4 = D / 4;
+  for (int idx = tid; idx < nrows * C4; idx += THREADS) {
+    const int r = idx / C4, c = (idx % C4) * 4;
+    float m = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) m = fmaxf(m, mw[w * ROWS + r]);
+    float l = 0.f, x[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      // a warp that saw no key of the row has l = acc = 0
+      const float wt = exp2_approx(mw[w * ROWS + r] - m);
+      l += lw[w * ROWS + r] * wt;
+      const float4 a4 = *reinterpret_cast<const float4*>(aw + (w * ROWS + r) * D + c);
+      x[0] += a4.x * wt;
+      x[1] += a4.y * wt;
+      x[2] += a4.z * wt;
+      x[3] += a4.w * wt;
+    }
+    const float inv = l == 0.f ? 0.f : 1.f / l;
+    const float lse = l == 0.f ? NEG_INF : m * LN2 + logf(l);
+    const int qi = r / group, h = hk * group + r % group;
+    // row (bi, h, qi) of the [b, hq, sq] layout
+    const long long row = ((long long)bi * p.hq + h) * p.sq + qi;
+    if (p.splits == 1) {
+      uint2 packed;
+      packed.x = pack_bf16(x[0] * inv, x[1] * inv);
+      packed.y = pack_bf16(x[2] * inv, x[3] * inv);
+      *reinterpret_cast<uint2*>(static_cast<BF*>(p.o) +
+          (((long long)bi * p.sq + qi) * p.hq + h) * D + c) = packed;
+      if (c == 0) p.lse[row] = lse;
+    } else {
+      const long long rows = (long long)p.b * p.hq * p.sq;
+      const long long prow = split * rows + row;
+      *reinterpret_cast<float4*>(p.scratch + prow * D + c) =
+          make_float4(x[0] * inv, x[1] * inv, x[2] * inv, x[3] * inv);
+      if (c == 0) p.scratch[p.splits * rows * D + prow] = lse;
+    }
+  }
+}
+
+// The splits' (o_i, lse_i) merged into o and lse, in split order:
+// m = max lse_i, w_i = exp(lse_i - m) (0 for a dead partial), o = sum
+// o_i w_i / sum w_i, lse = m + log(sum w_i); a row with every partial dead
+// gets o = 0 and lse = NEG_INF. Each thread: 4 columns of a row.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_combine_kernel(const Params p) {
+  constexpr int C4 = D / 4, PER_BLOCK = THREADS / C4;
+  // every write of the split kernel is visible past this point
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const long long rows = (long long)p.b * p.hq * p.sq;
+  const long long row = (long long)blockIdx.x * PER_BLOCK + threadIdx.x / C4;
+  const int c = (threadIdx.x % C4) * 4;
+  if (row >= rows) return;
+  const float* lse_i = p.scratch + p.splits * rows * D;
+  float m = NEG_INF;
+  for (int i = 0; i < p.splits; ++i) m = fmaxf(m, lse_i[i * rows + row]);
+  const bool dead = m <= NEG_INF / 2;
+  float den = 0.f;
+  for (int i = 0; i < p.splits; ++i) {
+    const float li = lse_i[i * rows + row];
+    den += (dead || li <= NEG_INF / 2) ? 0.f : expf(li - m);
+  }
+  float x[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int i = 0; i < p.splits; ++i) {
+    const float li = lse_i[i * rows + row];
+    if (dead || li <= NEG_INF / 2) continue;
+    const float wt = expf(li - m) / den;
+    const float4 o4 = *reinterpret_cast<const float4*>(
+        p.scratch + (i * rows + row) * D + c);
+    x[0] += o4.x * wt;
+    x[1] += o4.y * wt;
+    x[2] += o4.z * wt;
+    x[3] += o4.w * wt;
+  }
+  // row = (bi * hq + h) * sq + qi; o is [b, sq, hq, d]
+  const int qi = row % p.sq;
+  const long long bh = row / p.sq;
+  const int h = bh % p.hq;
+  const long long bi = bh / p.hq;
+  uint2 packed;
+  packed.x = pack_bf16(x[0], x[1]);
+  packed.y = pack_bf16(x[2], x[3]);
+  *reinterpret_cast<uint2*>(static_cast<BF*>(p.o) +
+                            ((bi * p.sq + qi) * p.hq + h) * D + c) = packed;
+  if (c == 0) p.lse[row] = dead ? NEG_INF : m + logf(den);
+}
+
+// Launch the kernel (and, with splits > 1, the merge), or with `config`
+// fill config[1..5] as rtt_flash_fwd_config describes instead.
+template <int D>
+cudaError_t run(const Params* p, int* config, cudaStream_t stream) {
+  using C = Cfg<D>;
+  static bool opted_in[64] = {};
+  const cudaError_t err = rtt::opt_in_smem(flash_fwd_kernel<D>, C::BYTES,
+                                           opted_in);
+  if (err != cudaSuccess) return err;
+  if (config) {
+    config[1] = ROWS;
+    config[2] = KEYS;
+    config[3] = THREADS;
+    config[4] = C::BYTES;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &config[5], flash_fwd_kernel<D>, THREADS, C::BYTES);
+  }
+  const int per = chunk_tiles(p->sk, p->splits);
+  if (p->sq * (p->hq / p->hkv) > ROWS || per == 0 || p->splits > MAX_GRID_Y ||
+      (p->splits > 1 && p->scratch == nullptr))
+    return cudaErrorInvalidValue;
+  Params lp = *p;
+  lp.chunk = per * KEYS;
+  const dim3 grid(p->b * p->hkv, p->splits);
+  flash_fwd_kernel<D><<<grid, THREADS, C::BYTES, stream>>>(lp);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || p->splits == 1) return e;
+  // a programmatic dependent launch: the merge's launch overlaps the
+  // kernel's last blocks instead of following its drain
+  const long long rows = (long long)p->b * p->hq * p->sq;
+  const int per_block = THREADS / (D / 4);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((rows + per_block - 1) / per_block);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = PDL;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, flash_fwd_combine_kernel<D>, lp);
+}
+
+}  // namespace dec
+
+// The one place that picks the kernel: float32 calls take the CUDA-core
+// kernel; bfloat16 calls of at most DEC_MAX_SQ query rows whose GQA group
+// times s_q fits dec's 16-row tile (decode, also at the 1b preset's group
+// of 8) the split-KV decode kernel; every other bfloat16 call the
+// tensor-core kernel. Measured with ray_tpu_torch/tools/tune_flash_fwd.py
+// on an H100 80GB HBM3 at 700 W (PERF.md): the tensor-core kernel is
+// faster than the CUDA-core one at every row count from 1 to 64 (bf16, d
+// 128, b 8, s_k 1024, 32 heads); dec is 1.05x (7b, b 8) to 2.7x (b 1,
+// 4,096 keys) faster than it at the serve path's decode shapes, as fast at
+// 1 row with every key visible, and no faster from 2 to 16 rows: dec
+// takes single rows.
+constexpr int DEC_MAX_SQ = 1;
+
+enum Kernel { SIMT = 0, TCB = 1, DEC = 2 };
+
+Kernel pick(int dtype, int sq, int group) {
+  if (dtype == 0) return SIMT;
+  return sq <= DEC_MAX_SQ && sq * group <= dec::ROWS ? DEC : TCB;
+}
+
+template <int D>
+cudaError_t by_kernel(int dtype, const Params* p, int sq, int group,
+                      int* config, cudaStream_t stream) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  const Kernel which = pick(dtype, sq, group);
+  if (config) {
+    config[0] = which;
+    config[6] = DEC_MAX_SQ + 1;
+    config[7] = which == DEC ? dec::STAGES : which == TCB ? 2 : 1;
+  }
+  if (which == DEC) return dec::run<D>(p, config, stream);
+  // only dec splits the keys
+  if (p && (p->splits != 1 || p->scratch)) return cudaErrorInvalidValue;
+  if (which == TCB) return tcb::run<D>(p, config, stream);
+  return simt::run<D>(p, config, stream);
+}
+
+cudaError_t dispatch(int dtype, int head_dim, int sq, int group,
+                     const Params* p, int* config, cudaStream_t stream) {
+  if (group < 1) return cudaErrorInvalidValue;
   switch (head_dim) {
-    case 16: return by_kernel<16>(dtype, p, sq, config, kernel, stream);
-    case 64: return by_kernel<64>(dtype, p, sq, config, kernel, stream);
-    case 128: return by_kernel<128>(dtype, p, sq, config, kernel, stream);
+    case 16: return by_kernel<16>(dtype, p, sq, group, config, stream);
+    case 64: return by_kernel<64>(dtype, p, sq, group, config, stream);
+    case 128: return by_kernel<128>(dtype, p, sq, group, config, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -664,10 +1071,21 @@ cudaError_t dispatch(int dtype, int head_dim, int sq, const Params* p,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. *kernel receives the kernel picked (0 =
-// CUDA cores, 1 = tensor cores), also when the launch is refused. Returns a
-// cudaError_t (0 on success); cudaErrorInvalidValue without launching when
-// sq needs more query tiles than grid.y holds.
+// The kernel a call takes: 0 = CUDA cores (simt), 1 = tensor cores (tcb),
+// 2 = split-KV decode (dec); -1 for a dtype no kernel takes. group = hq /
+// hkv. Touches no device.
+int rtt_flash_fwd_kernel(int dtype, int sq, int group) {
+  if ((dtype != 0 && dtype != 1) || group < 1) return -1;
+  return pick(dtype, sq, group);
+}
+
+// dtype: 0 = float32, 1 = bfloat16; the kernel is rtt_flash_fwd_kernel's
+// pick. splits: dec's key chunks (1 for the other kernels); scratch: with
+// splits > 1, fp32 room for splits * b * hq * sq * (head_dim + 1) values.
+// Returns a cudaError_t (0 on success); cudaErrorInvalidValue without
+// launching when sq needs more query tiles than grid.y holds, or for a
+// split count whose chunks of whole 64-key tiles would not cover the keys
+// with none empty.
 int rtt_flash_fwd(int dtype, int head_dim,
                   const void* q, const void* k, const void* v,
                   void* o, float* lse, const int* qoff,
@@ -675,21 +1093,26 @@ int rtt_flash_fwd(int dtype, int head_dim,
                   long long q_sb, long long q_ss, long long q_sh,
                   long long k_sb, long long k_ss, long long k_sh,
                   long long v_sb, long long v_ss, long long v_sh,
-                  float scale, int causal, void* stream, int* kernel) {
+                  float scale, int causal, int splits, float* scratch,
+                  void* stream) {
   Params p{q, k, v, o, lse, qoff, b, sq, sk, hq, hkv,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-           scale, causal};
-  return dispatch(dtype, head_dim, sq, &p, nullptr, kernel,
+           scale, causal, splits, 0, scratch};
+  if (hkv < 1) return cudaErrorInvalidValue;
+  return dispatch(dtype, head_dim, sq, hq / hkv, &p, nullptr,
                   static_cast<cudaStream_t>(stream));
 }
 
-// The kernel a call with sq query rows takes on the current device, and its
-// tiling: out[0] the kernel (0 = CUDA cores, 1 = tensor cores), out[1]
-// query rows per block, out[2] keys per streamed tile, out[3] threads per
-// block, out[4] dynamic shared memory bytes, out[5] blocks resident per SM,
-// out[6] TC_MIN_SQ. Returns a cudaError_t.
-int rtt_flash_fwd_config(int dtype, int head_dim, int sq, int* out) {
-  return dispatch(dtype, head_dim, sq, nullptr, out, nullptr, nullptr);
+// The kernel a call with sq query rows and GQA group hq / hkv takes on the
+// current device, and its tiling: out[0] the kernel (as
+// rtt_flash_fwd_kernel), out[1] query rows per block, out[2] keys per
+// streamed tile, out[3] threads per block, out[4] dynamic shared memory
+// bytes, out[5] blocks resident per SM, out[6] the fewest bf16 rows that
+// take the tensor-core kernel at group 1, out[7] K/V stages in flight.
+// Returns a cudaError_t.
+int rtt_flash_fwd_config(int dtype, int head_dim, int sq, int group,
+                         int* out) {
+  return dispatch(dtype, head_dim, sq, group, nullptr, out, nullptr);
 }
 
 const char* rtt_cuda_error_string(int err) {

@@ -93,12 +93,12 @@ def ptxas_summary(log: str) -> Dict[str, Dict[str, int]]:
     """{"kernel<dtype,D>": {"registers": n, "spill_bytes": m}} from the
     ``-Xptxas -v`` lines of one build's log. A kernel is named with its
     namespace, as in "tcb::flash_bwd_dq_kernel<bf16,64>". Its dtype is its
-    template argument where it has one ("simt::flash_fwd_kernel<bf16,16>"),
-    else set by the namespace: tcb (bf16) or simt (float)."""
+    template argument where it has one ("flash_fwd_kernel<bf16,64>"),
+    else set by the namespace: tcb and dec (bf16) or simt (float)."""
     out, name, spill = {}, None, 0
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '.*?(?:(tcb|simt)\d+)?"
-                      r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)"
+        m = re.search(r"Compiling entry function '.*?(?:(tcb|simt|dec)\d+)?"
+                      r"(flash_(?:fwd|fwd_combine|bwd_dq|bwd_dkv)_kernel)"
                       r"I(f|13__nv_bfloat16)?Li(\d+)E", ln)
         if m:
             ns, elem = m.group(1), m.group(3)

@@ -2,7 +2,8 @@
 versions.
 
 Port of ``ray_tpu/ops/pallas/flash.py``: the forward (``_fwd_kernel``,
-launched by ``_flash_fwd_bhsd``) is ``csrc/flash_fwd.cu``; the backward
+launched by ``_flash_fwd_bhsd``) is ``csrc/flash_fwd.cu``, three kernels
+of which the C side picks one per call (``fwd_tiling``); the backward
 (``_dq_kernel`` and ``_dkv_kernel``, launched by ``_flash_bwd_bhsd``) is
 ``csrc/flash_bwd.cu``. Each source note says what bounds the kernel and
 what its design does about it. The wrappers keep the JAX layout: q, k, v,
@@ -34,17 +35,29 @@ from ray_tpu_torch.ops.attention import NEG_INF, causal_mask
 Offset = Union[int, torch.Tensor]
 HEAD_DIMS = (16, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# grid.y holds one query tile per index. Forward: the C side picks the
-# kernel (bf16 with enough rows: tensor cores, "tcb"; else CUDA cores,
-# "simt", by the code it reports) and refuses a launch that needs more
-# tiles; query rows per tile of each kernel:
-FWD_KERNELS = ("simt", "tcb")
+# Forward: the C side picks the kernel by the code it reports (float32:
+# CUDA cores, "simt"; bf16 decode, s_q * group within one 16-row tile:
+# split-KV, "dec"; other bf16: tensor cores, "tcb"). grid.y holds one
+# query tile per index (simt, tcb) or one key chunk (dec); the C side
+# refuses a launch that needs more. Query rows per tile of simt and tcb:
+FWD_KERNELS = ("simt", "tcb", "dec")
 FWD_TILE_ROWS = {"simt": 16, "tcb": 64}
+# dec: keys are split into chunks of whole tiles of DEC_KEY_TILE keys, as
+# many as give DEC_BLOCKS_PER_SM blocks for every SM of the card, each of
+# at least DEC_MIN_CHUNK_TILES tiles. Measured with
+# ray_tpu_torch/tools/tune_flash_fwd.py on an H100 (PERF.md): one wave of
+# blocks with chunks of 4 tiles or more was the fastest at every decode
+# shape of the serve path; more, shorter chunks pay each block's fixed
+# cost again, and a second wave its tail.
+DEC_KEY_TILE = 64
+DEC_BLOCKS_PER_SM = 1
+DEC_MIN_CHUNK_TILES = 4
 # backward: one query tile (dq) or key tile (dkv) per index, 16 rows in
 # the fp32 kernels and 64 in the bf16 tensor-core kernels
 BWD_TILE_ROWS = {torch.float32: 16, torch.bfloat16: 64}
 MAX_GRID_Y = 65535
-_fns = {}              # library name -> (launch, error_string)
+_fns = {}              # library name -> (launch, error_string, pick)
+_sms = {}              # CUDA device index -> SM count
 
 
 def _offsets(q_offset: Offset, b: int, device: torch.device) -> torch.Tensor:
@@ -70,6 +83,12 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     masked to NEG_INF, exp against the row max, p rounded to V's dtype
     before PV, l summed from the fp32 p, and the dead-row rule (o = 0,
     lse = NEG_INF where no key is visible)."""
+    o, lse = _fwd_plain(q, k, v, q_offset, causal, scale)
+    return o.to(q.dtype), lse
+
+
+def _fwd_plain(q, k, v, q_offset, causal, scale):
+    """``flash_fwd_reference`` with o left in fp32."""
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     scale = scale if scale is not None else d ** -0.5
@@ -86,34 +105,118 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l_safe = torch.where(l == 0.0, 1.0, l)
     pv = p.to(v.dtype).float().reshape(b, hkv, group, sq, sk)
     acc = torch.einsum("bhgqk,bkhd->bhgqd", pv, v.float())
-    o = acc.reshape(b, hq, sq, d) / l_safe
-    o = o.to(q.dtype).permute(0, 2, 1, 3).contiguous()
+    o = (acc.reshape(b, hq, sq, d) / l_safe).permute(0, 2, 1, 3)
     lse = torch.where(l == 0.0, NEG_INF, m + torch.log(l_safe))[..., 0]
-    return o, lse
+    return o.contiguous(), lse
+
+
+def merge_partials(os, lses):
+    """n partial softmax results over disjoint key sets merged into one:
+    JAX's ``context._merge`` (``ray_tpu/parallel/context.py:71-82``) taken
+    over n partials in order. o_i [b,s,h,d], lse_i [b,h,s]; a partial with
+    lse_i <= NEG_INF/2 has weight 0, a row whose partials are all dead
+    gets o = 0 and lse = NEG_INF. Returns o in o_0's dtype."""
+    lse = torch.stack(lses)                                # [n, b, h, s]
+    m = lse.amax(dim=0)
+    m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
+    w = torch.where(lse <= NEG_INF / 2, 0.0, torch.exp(lse - m_safe))
+    denom = w.sum(dim=0)
+    denom_safe = torch.where(denom == 0.0, 1.0, denom)
+    to_o = lambda wi: (wi / denom_safe).transpose(1, 2)[..., None]
+    o = sum(oi * to_o(wi) for oi, wi in zip(os, w))
+    lse = torch.where(denom == 0.0, NEG_INF, m_safe + torch.log(denom_safe))
+    return o.to(os[0].dtype), lse
+
+
+def decode_chunk(sk: int, splits: int) -> int:
+    """Keys per chunk when ``sk`` keys are split ``splits`` ways, as the
+    dec kernel splits them: whole tiles of DEC_KEY_TILE keys, the same
+    number in every chunk, none empty. Raises ValueError for a split count
+    that rule does not allow (the C side refuses it too)."""
+    tiles = -(-sk // DEC_KEY_TILE)
+    per = -(-tiles // splits) if 1 <= splits <= tiles else 0
+    if not per or -(-tiles // per) != splits:
+        raise ValueError(f"{sk} keys do not split into {splits} chunks of "
+                         f"whole {DEC_KEY_TILE}-key tiles")
+    return per * DEC_KEY_TILE
+
+
+def decode_splits(b: int, hkv: int, sk: int, sms: int) -> Tuple[int, int]:
+    """(splits, keys per chunk) of a dec call: enough chunks that the grid
+    of b * hkv * splits blocks reaches DEC_BLOCKS_PER_SM blocks for each
+    of ``sms`` SMs, unless that would cut chunks below DEC_MIN_CHUNK_TILES
+    whole key tiles; no chunk empty. A function of the shapes and the
+    card alone, never of positions: ``sk`` is the cache's length, and
+    each block clips its chunk to its row's causal end on the device."""
+    tiles = max(1, -(-sk // DEC_KEY_TILE))
+    want = -(-DEC_BLOCKS_PER_SM * sms // max(1, b * hkv))
+    splits = -(-tiles // max(1, DEC_MIN_CHUNK_TILES, tiles // want))
+    return splits, decode_chunk(sk, splits)
+
+
+def flash_decode_reference(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, q_offset: Offset, splits: int,
+                           *, causal: bool = True,
+                           scale: Optional[float] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the dec kernel's split arithmetic: the
+    keys cut into ``splits`` chunks (``decode_chunk``), the plain forward
+    on each with its offset moved to the chunk's first key and o kept in
+    fp32, the partials merged in split order (``merge_partials``), o cast
+    once to q's dtype. Used by the tests and ``chip_smoke.py``; the
+    wrappers take ``flash_fwd_reference`` for a CPU tensor."""
+    d, sk = q.shape[-1], k.shape[1]
+    scale = scale if scale is not None else d ** -0.5
+    chunk = decode_chunk(sk, splits)
+    if isinstance(q_offset, torch.Tensor):
+        q_offset = _offsets(q_offset, q.shape[0], q.device)
+    parts = [_fwd_plain(q, k[:, c0:c0 + chunk], v[:, c0:c0 + chunk],
+                        q_offset - c0, causal, scale)
+             for c0 in range(0, sk, chunk)]
+    o, lse = merge_partials(*zip(*parts))
+    return o.to(q.dtype), lse
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # each library's launch function and its argument types
 _LAUNCH = {
     "flash_fwd": ("rtt_flash_fwd", [_I, _I] + [_P] * 6 + [_I] * 5 + [_L] * 9
-                  + [ctypes.c_float, _I, _P, ctypes.POINTER(_I)]),
+                  + [ctypes.c_float, _I, _I, _P, _P]),
     "flash_bwd": ("rtt_flash_bwd", [_I, _I, _I] + [_P] * 11 + [_I] * 5
                   + [_L] * 15 + [ctypes.c_float, _I, _P]),
 }
 
 
+def typed_fns(lib: ctypes.CDLL, name: str):
+    """(launch, error_string, pick) of a library built from
+    ``csrc/<name>.cu``: pick(dtype code, sq, group) is the forward's
+    kernel choice, None for the backward."""
+    fn_name, argtypes = _LAUNCH[name]
+    launch = getattr(lib, fn_name)
+    launch.argtypes, launch.restype = argtypes, _I
+    lib.rtt_cuda_error_string.argtypes = [_I]
+    lib.rtt_cuda_error_string.restype = ctypes.c_char_p
+    pick = None
+    if name == "flash_fwd":
+        pick = lib.rtt_flash_fwd_kernel
+        pick.argtypes, pick.restype = [_I, _I, _I], _I
+    return launch, lib.rtt_cuda_error_string, pick
+
+
 def _kernel_fns(name: str):
-    """(launch, error_string) from the built library ``name``, typed
-    once."""
+    """``typed_fns`` of the built library ``name``, typed once."""
     if name not in _fns:
-        lib = _build.load(name)
-        fn_name, argtypes = _LAUNCH[name]
-        launch = getattr(lib, fn_name)
-        launch.argtypes, launch.restype = argtypes, _I
-        lib.rtt_cuda_error_string.argtypes = [_I]
-        lib.rtt_cuda_error_string.restype = ctypes.c_char_p
-        _fns[name] = (launch, lib.rtt_cuda_error_string)
+        _fns[name] = typed_fns(_build.load(name), name)
     return _fns[name]
+
+
+def _sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
 
 
 def _aligned(x: torch.Tensor) -> bool:
@@ -159,13 +262,15 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               q_offset: Offset = 0, *, causal: bool = True,
-              scale: Optional[float] = None
+              scale: Optional[float] = None, splits: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ported ``_fwd_kernel``: (o [b,sq,hq,d] in q's dtype,
-    lse [b,hq,sq] fp32). ``flash_fwd.launches`` counts kernel launches,
+    lse [b,hq,sq] fp32). ``flash_fwd.launches`` counts wrapper launches,
     ``flash_fwd.launches_by_kernel`` splits them by the kernel the C side
-    picked ("tcb": bf16 tensor cores, "simt": CUDA cores; ``fwd_tiling``
-    says which a shape takes)."""
+    picked ("tcb": bf16 tensor cores, "dec": bf16 split-KV decode, "simt":
+    float32 CUDA cores; ``fwd_tiling`` says which a shape takes).
+    ``splits`` sets the dec kernel's key chunks (default:
+    ``decode_splits`` for this card); the other kernels take only 1."""
     _check_shapes(q, k, v)
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
@@ -188,8 +293,15 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o.zero_()
         lse.fill_(NEG_INF)
         return o, lse
-    launch, error_string = _kernel_fns("flash_fwd")
-    picked = _I(-1)
+    launch, error_string, pick = _kernel_fns("flash_fwd")
+    kernel = FWD_KERNELS[pick(_DTYPE_CODE[q.dtype], sq, hq // hkv)]
+    if splits is None:
+        splits = (decode_splits(b, hkv, sk, _sm_count(q.device))[0]
+                  if kernel == "dec" else 1)
+    # dec's partials (o_i, lse_i) in fp32: one allocation, no fill
+    scratch = (torch.empty(splits * b * hq * sq * (d + 1),
+                           dtype=torch.float32, device=q.device)
+               if kernel == "dec" and splits > 1 else None)
     # the C side launches on the calling thread's current device
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -197,10 +309,15 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                      offs.data_ptr(), b, sq, sk, hq, hkv, *q.stride()[:3],
                      *k.stride()[:3], *v.stride()[:3], scale, int(causal),
-                     stream, ctypes.byref(picked))
-    kernel = FWD_KERNELS[picked.value] if picked.value in (0, 1) else None
+                     splits, None if scratch is None else scratch.data_ptr(),
+                     stream)
     if err:
-        if kernel and sq > MAX_GRID_Y * FWD_TILE_ROWS[kernel]:
+        if kernel != "dec" and splits != 1:
+            raise ValueError(f"flash_fwd's {kernel} kernel takes no splits, "
+                             f"got {splits}")
+        if kernel == "dec":
+            decode_chunk(sk, splits)   # raises for a count the rule refuses
+        elif sq > MAX_GRID_Y * FWD_TILE_ROWS[kernel]:
             raise ValueError(
                 f"flash_fwd's {kernel} kernel takes at most "
                 f"{MAX_GRID_Y * FWD_TILE_ROWS[kernel]} queries, got {sq}")
@@ -215,24 +332,33 @@ flash_fwd.launches = 0
 flash_fwd.launches_by_kernel = dict.fromkeys(FWD_KERNELS, 0)
 
 
-def fwd_tiling(dtype: torch.dtype, head_dim: int, sq: int) -> dict:
-    """The forward kernel a call with ``sq`` query rows takes on the
-    current card, and its tiling: the kernel ("tcb" or "simt"), query rows
-    per block, keys per streamed tile, threads, dynamic shared memory
-    bytes, blocks resident per SM, and ``tc_min_sq``, the fewest bf16 rows
-    that take the tensor-core kernel."""
+def fwd_tiling(dtype: torch.dtype, head_dim: int, sq: int, group: int = 1,
+               *, b: Optional[int] = None, hkv: Optional[int] = None,
+               sk: Optional[int] = None) -> dict:
+    """The forward kernel a call with ``sq`` query rows and GQA group
+    ``group`` (hq / hkv) takes on the current card, and its tiling: the
+    kernel ("tcb", "dec" or "simt"), query rows per block, keys per
+    streamed tile, threads, dynamic shared memory bytes, blocks resident
+    per SM, ``tc_min_sq`` (the fewest bf16 rows that take the tensor-core
+    kernel at group 1) and the K/V stages in flight. For "dec", given
+    ``b``, ``hkv`` and ``sk``, also its ``splits`` and ``chunk`` (keys)
+    on this card."""
     lib = _build.load("flash_fwd")
     fn = lib.rtt_flash_fwd_config
-    fn.argtypes, fn.restype = [_I, _I, _I, ctypes.POINTER(_I)], _I
-    _, error_string = _kernel_fns("flash_fwd")
-    vals = (_I * 7)()
-    err = fn(_DTYPE_CODE[dtype], head_dim, sq, vals)
+    fn.argtypes, fn.restype = [_I, _I, _I, _I, ctypes.POINTER(_I)], _I
+    _, error_string, _ = _kernel_fns("flash_fwd")
+    vals = (_I * 8)()
+    err = fn(_DTYPE_CODE[dtype], head_dim, sq, group, vals)
     if err:
         raise RuntimeError("flash_fwd config failed: "
                            + error_string(err).decode())
     out = dict(zip(("kernel", "block_rows", "key_tile", "threads",
-                    "smem_bytes", "blocks_per_sm", "tc_min_sq"), vals))
+                    "smem_bytes", "blocks_per_sm", "tc_min_sq", "stages"),
+                   vals))
     out["kernel"] = FWD_KERNELS[out["kernel"]]
+    if out["kernel"] == "dec" and None not in (b, hkv, sk):
+        out["splits"], out["chunk"] = decode_splits(
+            b, hkv, sk, _sm_count(torch.device("cuda")))
     return out
 
 
@@ -331,7 +457,7 @@ def _launch_bwd(which, q, k, v, o, do, lse, delta, dq, dk, dv, offs, causal,
                          f" queries and keys in {q.dtype}, got {sq} and {sk}")
     ptr = lambda x: 0 if x is None else x.data_ptr()
     strides = lambda x: (0, 0, 0) if x is None else x.stride()[:3]
-    launch, error_string = _kernel_fns("flash_bwd")
+    launch, error_string, _ = _kernel_fns("flash_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(which, _DTYPE_CODE[q.dtype], d, ptr(q), ptr(k), ptr(v),
@@ -352,7 +478,7 @@ def bwd_tiling(dtype: torch.dtype, head_dim: int) -> dict:
     lib = _build.load("flash_bwd")
     fn = lib.rtt_flash_bwd_config
     fn.argtypes, fn.restype = [_I, _I, _I, ctypes.POINTER(_I)], _I
-    _, error_string = _kernel_fns("flash_bwd")
+    _, error_string, _ = _kernel_fns("flash_bwd")
     out = {}
     for which, name in enumerate(("dq", "dkv")):
         vals = (_I * 5)()

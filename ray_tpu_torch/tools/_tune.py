@@ -41,12 +41,12 @@ def device_ms(fn, iters=10):
 
 def build_variants(source: str, variants: Dict[str, Dict[str, str]],
                    out_dir: Path):
-    """{name: (launch, error_string, ptxas summary of the tcb kernels)},
-    one library of ``csrc/<source>.cu`` per variant."""
+    """{name: (launch, error_string, pick, ptxas summary of the tcb and
+    dec kernels)}, one library of ``csrc/<source>.cu`` per variant
+    (``flash.typed_fns``)."""
     src = (_build.CSRC / f"{source}.cu").read_text()
     for header in _build.CSRC.glob("*.cuh"):
         (out_dir / header.name).write_text(header.read_text())
-    fn_name, argtypes = flash._LAUNCH[source]
     procs = {}
     for name, subs in variants.items():
         text = src
@@ -65,13 +65,9 @@ def build_variants(source: str, variants: Dict[str, Dict[str, str]],
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc exit {proc.returncode}\n{err}")
         regs = {k: v for k, v in _build.ptxas_summary(err).items()
-                if k.startswith("tcb::")}
+                if k.startswith(("tcb::", "dec::"))}
         lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        launch = getattr(lib, fn_name)
-        launch.argtypes, launch.restype = argtypes, ctypes.c_int
-        lib.rtt_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.rtt_cuda_error_string.restype = ctypes.c_char_p
-        libs[name] = (launch, lib.rtt_cuda_error_string, regs)
+        libs[name] = (*flash.typed_fns(lib, source), regs)
     return libs
 
 

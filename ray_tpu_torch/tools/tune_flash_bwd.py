@@ -64,7 +64,7 @@ def main(argv=None) -> int:
     emit = emitter(args.jsonl)
     emit({"nvidia_smi": nvidia_smi()})
     libs = build_variants("flash_bwd", VARIANTS, Path(tempfile.mkdtemp()))
-    for name, (_, _, regs) in libs.items():
+    for name, (*_, regs) in libs.items():
         emit({"variant": name, "ptxas": regs})
     shipped = flash._kernel_fns("flash_bwd")
     g = torch.Generator(device="cuda").manual_seed(4321)
@@ -82,7 +82,7 @@ def main(argv=None) -> int:
             order = list(VARIANTS)
             for rep, names in enumerate((order, order[::-1])):
                 for name in names:
-                    flash._fns["flash_bwd"] = libs[name][:2]
+                    flash._fns["flash_bwd"] = libs[name][:3]
                     dq, delta = flash.flash_dq(q, k, v, o, lse, do, offs)
                     dk, dv = flash.flash_dkv(q, k, v, lse, delta, do, offs)
                     rel = {n: float((x.float() - y.float()).abs().max()

@@ -42,12 +42,18 @@ ptxas info    : Used 80 registers, used 1 barriers
 ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__0c_12_flash_fwd_cu_b1f2c3d43tcb16flash_fwd_kernelILi64EEEvNS_6ParamsE' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 154 registers, used 1 barriers
-ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__0c_12_flash_fwd_cu_b1f2c3d44simt16flash_fwd_kernelIfLi128EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__0c_12_flash_fwd_cu_b1f2c3d44simt16flash_fwd_kernelILi128EEEvNS_6ParamsE' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 96 registers, used 1 barriers
-ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__0c_12_flash_fwd_cu_b1f2c3d44simt16flash_fwd_kernelI13__nv_bfloat16Li16EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__0c_12_flash_fwd_cu_b1f2c3d44simt16flash_fwd_kernelILi16EEEvNS_6ParamsE' for 'sm_90a'
     0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 40 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__0c_12_flash_fwd_cu_b1f2c3d43dec16flash_fwd_kernelILi128EEEvNS_6ParamsE' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__0c_12_flash_fwd_cu_b1f2c3d43dec24flash_fwd_combine_kernelILi64EEEvNS_6ParamsE' for 'sm_90a'
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers
 """
 
 
@@ -64,8 +70,12 @@ def test_ptxas_summary_names_kernels_with_registers_and_spills():
                                            "spill_bytes": 0},
         "simt::flash_fwd_kernel<float,128>": {"registers": 96,
                                               "spill_bytes": 0},
-        "simt::flash_fwd_kernel<bf16,16>": {"registers": 40,
-                                            "spill_bytes": 8},
+        "simt::flash_fwd_kernel<float,16>": {"registers": 40,
+                                             "spill_bytes": 8},
+        "dec::flash_fwd_kernel<bf16,128>": {"registers": 168,
+                                            "spill_bytes": 0},
+        "dec::flash_fwd_combine_kernel<bf16,64>": {"registers": 32,
+                                                   "spill_bytes": 16},
     }
 
 
@@ -161,11 +171,29 @@ def test_forward_device_time_splits_by_kernel_namespace():
     per_kernel = {
         "void (anonymous namespace)::tcb::flash_fwd_kernel<64>((anonymous "
         "namespace)::Params)": 13.0,
-        "void (anonymous namespace)::simt::flash_fwd_kernel<__nv_bfloat16, "
-        "128>((anonymous namespace)::Params)": 1.25,
+        "void (anonymous namespace)::simt::flash_fwd_kernel<128>((anonymous "
+        "namespace)::Params)": 1.25,
         "void (anonymous namespace)::tcb::flash_bwd_dq_kernel<64>((anonymous "
         "namespace)::Params)": 9.0,
+        "void (anonymous namespace)::dec::flash_fwd_kernel<128>((anonymous "
+        "namespace)::Params)": 0.5,
+        "void (anonymous namespace)::dec::flash_fwd_combine_kernel<128>("
+        "(anonymous namespace)::Params)": 0.125,
         "nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT": 33.0,
     }
-    assert _chip_smoke().fwd_ms_by_kernel(per_kernel) == {"tcb": 13.0,
-                                                          "simt": 1.25}
+    assert _chip_smoke().fwd_ms_by_kernel(per_kernel) == {
+        "tcb": 13.0, "dec": 0.625, "simt": 1.25}
+
+
+def test_headline_cases_name_kernel_cases_of_their_kernel():
+    """Each kernel's headline case is a case of the kernel phase whose
+    shape that kernel takes: dec bf16 single rows, simt float32, tcb bf16
+    from 2 rows."""
+    cs = _chip_smoke()
+    assert set(cs.HEADLINE_CASES) == {"tcb", "dec", "simt"}
+    for kern, name in cs.HEADLINE_CASES.items():
+        assert name in cs.KERNEL_CASES, name
+        _, sq, _, _, _, _, _, _, dt = cs.KERNEL_CASES[name]
+        assert (dt == "float32") == (kern == "simt")
+        if kern != "simt":
+            assert (sq == 1) == (kern == "dec")

@@ -1,5 +1,6 @@
-"""The CUDA flash kernels (forward on the CUDA cores and on the bf16
-tensor cores; backward dq and dkv) against their plain PyTorch versions,
+"""The CUDA flash kernels (forward on the CUDA cores, on the bf16 tensor
+cores and split-KV for bf16 decode; backward dq and dkv) against their
+plain PyTorch versions,
 on the card. Marked ``cuda``: each test skips where no CUDA device is present
 (run on a GPU host with ``python -m pytest tests/test_torch_flash_cuda.py
 -m cuda``). Imports no jax, so it runs where jax is not installed.
@@ -68,13 +69,14 @@ def _fwd_inputs(device, case, dtype, seed):
     return q, k, v, off, causal
 
 
-def _check_fwd(q, k, v, off, causal):
+def _check_fwd(q, k, v, off, causal, splits=None):
     """One launch on the kernel ``fwd_tiling`` names, held against the
     plain version."""
-    kernel = tflash.fwd_tiling(q.dtype, q.shape[-1], q.shape[1])["kernel"]
+    kernel = tflash.fwd_tiling(q.dtype, q.shape[-1], q.shape[1],
+                               q.shape[2] // k.shape[2])["kernel"]
     before = (tflash.flash_fwd.launches,
               tflash.flash_fwd.launches_by_kernel[kernel])
-    o, lse = tflash.flash_fwd(q, k, v, off, causal=causal)
+    o, lse = tflash.flash_fwd(q, k, v, off, causal=causal, splits=splits)
     torch.cuda.synchronize()
     assert (tflash.flash_fwd.launches,
             tflash.flash_fwd.launches_by_kernel[kernel]) == tuple(
@@ -86,7 +88,7 @@ def _check_fwd(q, k, v, off, causal):
         torch.testing.assert_close(o.float(), ref_o.float(), atol=2e-2,
                                    rtol=2e-2)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
-    return kernel
+    return kernel, o, lse
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -97,17 +99,110 @@ def test_kernel_matches_plain(cuda, name, dtype):
 
 def test_fwd_dispatch_threshold(cuda):
     """bf16 takes the tensor-core kernel from ``tc_min_sq`` query rows up
-    and the CUDA-core kernel below; float32 always the CUDA-core one. Both
-    sides of the threshold match the plain version (d 128, s_k 1024, the
-    rows at the end of the keys)."""
+    and the split-KV decode kernel below; float32 always the CUDA-core
+    one. Both sides of the threshold match the plain version (d 128, s_k
+    1024, the rows at the end of the keys)."""
     tc_min = tflash.fwd_tiling(torch.bfloat16, 128, 1)["tc_min_sq"]
-    for sq, dtype, want in ((tc_min - 1, torch.bfloat16, "simt"),
+    for sq, dtype, want in ((tc_min - 1, torch.bfloat16, "dec"),
                             (tc_min, torch.bfloat16, "tcb"),
                             (tc_min, torch.float32, "simt")):
         if sq < 1:
             continue
         case = (2, sq, 1024, 8, 8, 128, True, 1024 - sq)
-        assert _check_fwd(*_fwd_inputs(cuda, case, dtype, seed=5)) == want
+        assert _check_fwd(*_fwd_inputs(cuda, case, dtype, seed=5))[0] == want
+
+
+DEC_CASES = {
+    # name: (b, sq, sk, hq, hkv, d, causal, offset); all bf16 decode
+    "d128_b8": (8, 1, 1024, 8, 8, 128, True, None),
+    "d64_gqa8": (4, 1, 700, 32, 4, 64, True, None),
+    "d16_gqa4": (3, 1, 300, 8, 2, 16, True, [299, 0, 150]),
+    # a dead row; rows whose later chunks are all dead
+    "d64_dead_first_chunk": (4, 1, 1024, 8, 2, 64, True, [-1, 0, 63, 1023]),
+    "d128_noncausal": (2, 1, 333, 4, 2, 128, False, 0),
+    # a group of 16 q heads fills the 16-row tile
+    "d128_gqa16": (2, 1, 512, 16, 1, 128, True, None),
+    "d128_s4096": (1, 1, 4096, 32, 32, 128, True, 4095),
+}
+
+
+def _dec_splits(case, which):
+    """The split count of a DEC_CASES case: the default rule's, 1, or one
+    chunk per 64-key tile."""
+    sk = case[2]
+    return {"default": None, "one": 1,
+            "per_tile": -(-sk // tflash.DEC_KEY_TILE)}[which]
+
+
+@pytest.mark.parametrize("which", ["default", "one", "per_tile"])
+@pytest.mark.parametrize("name", sorted(DEC_CASES))
+def test_decode_kernel_matches_plain(cuda, name, which):
+    """dec against the plain forward and against the plain version of its
+    split arithmetic with the same split count; dead rows o = 0, lse =
+    NEG_INF."""
+    q, k, v, off, causal = _fwd_inputs(cuda, DEC_CASES[name],
+                                       torch.bfloat16, seed=6)
+    splits = _dec_splits(DEC_CASES[name], which)
+    kernel, o, lse = _check_fwd(q, k, v, off, causal, splits)
+    assert kernel == "dec"
+    b, _, sk, _, hkv, _, _, _ = DEC_CASES[name]
+    n = splits or tflash.decode_splits(
+        b, hkv, sk, torch.cuda.get_device_properties(0)
+        .multi_processor_count)[0]
+    so, slse = tflash.flash_decode_reference(q, k, v, off, n, causal=causal)
+    # the same chunks merged in the same order: one bf16 ulp of o at most
+    torch.testing.assert_close(o.float(), so.float(), atol=1e-3, rtol=8e-3)
+    torch.testing.assert_close(lse, slse, atol=1e-4, rtol=0)
+    offs = tflash._offsets(off, b, q.device)
+    dead = offs < 0
+    assert bool((o[dead] == 0).all()) and bool((lse[dead] < -1e9).all())
+
+
+@pytest.mark.parametrize("which", ["default", "one", "per_tile"])
+@pytest.mark.parametrize("name", ["d128_b8", "d64_gqa8", "d128_s4096"])
+def test_decode_kernel_is_deterministic(cuda, name, which):
+    """Each block sums its keys in a fixed order and the splits merge in
+    split order: two launches give the same bits."""
+    q, k, v, off, causal = _fwd_inputs(cuda, DEC_CASES[name],
+                                       torch.bfloat16, seed=8)
+    splits = _dec_splits(DEC_CASES[name], which)
+    first = tflash.flash_fwd(q, k, v, off, causal=causal, splits=splits)
+    second = tflash.flash_fwd(q, k, v, off, causal=causal, splits=splits)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_fwd_tiling_names_each_kernel(cuda):
+    """bf16 decode whose GQA group fits 16 rows: dec, with its splits and
+    chunk; a group of 32: tcb; float32: simt."""
+    t = tflash.fwd_tiling(torch.bfloat16, 128, 1, 1, b=1, hkv=32, sk=1024)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert t["kernel"] == "dec" and t["block_rows"] == 16
+    assert (t["splits"], t["chunk"]) == tflash.decode_splits(1, 32, 1024, sms)
+    assert t["stages"] >= 2 and t["blocks_per_sm"] >= 1
+    assert tflash.fwd_tiling(torch.bfloat16, 64, 1, 8)["kernel"] == "dec"
+    assert tflash.fwd_tiling(torch.bfloat16, 64, 1, 32)["kernel"] == "tcb"
+    assert tflash.fwd_tiling(torch.float32, 128, 1)["kernel"] == "simt"
+
+
+def test_fwd_refuses_a_split_count_the_chunk_rule_does_not_allow(cuda):
+    """More chunks than 64-key tiles, a count that leaves a chunk empty,
+    and splits on a kernel that takes none: refused without a launch."""
+    q, k, v, off, causal = _fwd_inputs(cuda, DEC_CASES["d16_gqa4"],
+                                       torch.bfloat16, seed=1)
+    before = dict(tflash.flash_fwd.launches_by_kernel)
+    for bad in (6, 0):   # 300 keys are 5 tiles
+        with pytest.raises(ValueError, match="chunks of whole"):
+            tflash.flash_fwd(q, k, v, off, causal=causal, splits=bad)
+    q2 = torch.zeros((1, 4, 2, 64), device=cuda, dtype=torch.bfloat16)
+    k2 = torch.zeros((1, 640, 2, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="chunks of whole"):
+        # 10 tiles: chunks of 2 tiles make 5 chunks, not 6
+        tflash.flash_fwd(q2[:, :1], k2, k2, splits=6)
+    with pytest.raises(ValueError, match="takes no splits"):
+        tflash.flash_fwd(q2, k2, k2, splits=2)
+    assert tflash.flash_fwd.launches_by_kernel == before
 
 
 def test_fwd_refuses_more_query_tiles_than_the_grid_holds(cuda):
@@ -128,8 +223,8 @@ def test_fwd_refuses_more_query_tiles_than_the_grid_holds(cuda):
 @pytest.mark.parametrize("name", ["d64_s65", "d128_gqa8", "d128_per_row",
                                   "decode_rows"])
 def test_fwd_kernels_are_deterministic(cuda, name, dtype):
-    """Each row is summed by one warp in a fixed order: two launches give
-    the same bits."""
+    """Each row is summed in a fixed order: two launches give the same
+    bits."""
     q, k, v, off, causal = _fwd_inputs(cuda, CASES[name], dtype, seed=3)
     first = tflash.flash_fwd(q, k, v, off, causal=causal)
     second = tflash.flash_fwd(q, k, v, off, causal=causal)
