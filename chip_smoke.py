@@ -40,7 +40,22 @@ process per source, all at once), then:
    requests, each request's first token checked against ``generate``; the
    prefills go through the tensor-core forward, the decode steps through
    the split-KV decode kernel (both counted; a profiled decode tick must
-   launch only the decode kernel);
+   launch only the decode kernel); then, with the same params, the kv
+   sub-phase: sampling engines (rows 4-7 at temperature 0.8, top-k 50),
+   a primer request that seeds a 4 GiB prefix KV cache with a 256-token
+   shared prefix, 8 prompts (that prefix + suffixes of 64 to 250 tokens)
+   through an engine with the cache off, then warm through the kv engine
+   (every admission must restore 256 tokens; greedy first tokens must
+   equal the cold ones wherever the cold top-2 margin exceeds
+   ``WARM_MARGIN_REL_TOL``), a sampled request alone twice with one seed
+   (same tokens), and a ``load_params`` of a cloned param set mid-wave
+   (in-flight streams finish, one swap, every resident page invalidated,
+   the next shared-prefix admission cold); its launches are counted as a
+   path of their own up to there (every admission one tensor-core launch
+   a layer, exactly); then, outside the count, a bare batcher on the same
+   cache (restored rows equal the pages bit for bit; a restore and a
+   capture timed); TTFT warm and cold, restore and prefill seconds, host
+   page bytes and the recorder's summary are reported;
 7. training: the 1b preset at full width and 22 layers, fp32 master
    params from a seeded generator, bf16 compute, flash attention, remat,
    8 AdamW steps on a fixed [4, 2049] token batch; finite and falling loss,
@@ -49,10 +64,10 @@ process per source, all at once), then:
    the tensor-core kernel's;
 8. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
 
-Each path (serve, train) zeroes every kernel's launch count just before
-it runs and reads them just after; a kernel of the paths that was not
-launched fails the run (the float32 CUDA-core forward is on neither path:
-its entry reports its launches, 0, and its cases).
+Each path (serve, serve_kv, train) zeroes every kernel's launch count
+just before it runs and reads them just after; a kernel of the paths that
+was not launched fails the run (the float32 CUDA-core forward is on no
+path: its entry reports its launches, 0, and its cases).
 
 Every phase prints one JSON line (``--jsonl PATH`` also appends them to a
 file). Any failed check raises: the script then
@@ -113,6 +128,22 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
 
 SERVE_PROMPT_LENS = (64, 512, 127, 384, 97, 250, 448, 190)
 SERVE_NEW_TOKENS = 32
+# the kv sub-phase: a shared prefix of 16 chunks of 16 tokens (a power of
+# two, so a warm lookup restores all of it), 8 distinct suffixes, a primer
+# request whose capture seeds the cache, rows 4-7 sampled
+SERVE_KV_PREFIX = 256
+SERVE_KV_SUFFIX_LENS = (64, 250, 127, 190, 97, 222, 160, 80)
+SERVE_KV_PRIMER_SUFFIX = 100
+SERVE_KV_SAMPLED = {"temperature": 0.8, "top_k": 50}
+SERVE_KV_BYTES = 4 << 30
+SERVE_KV_SWAP_LENS = (300, 200, 350)   # the swap wave's fresh prompts
+# warm against cold first tokens (greedy rows): a warm prefill runs the
+# suffix's rows alone over restored pages, a cold one all rows, so their
+# GEMMs differ in M and bf16 sums may round apart by a few ulps through
+# the 32 layers. A token must agree wherever the cold top-2 logit margin
+# exceeds this share of the row's largest |logit| (LOGIT_REL_TOL's share,
+# which bounds flash against plain logits through two layers).
+WARM_MARGIN_REL_TOL = 2e-2
 
 
 class SmokeFailure(AssertionError):
@@ -676,28 +707,11 @@ def serve_phase(torch, np, tllama, TG, ContinuousEngine, flash):
     eng = ContinuousEngine(params, cfg, max_slots=8, max_len=1024,
                            decode_stride=8, device=DEV)
     warm_s = time.perf_counter() - t_start
-    t_submit, stamps, outs = {}, {}, {}
-
-    def consume(i, q):
-        toks, ts = [], []
-        while True:
-            t = q.get(timeout=600)
-            if t is None:
-                break
-            toks.append(t)
-            ts.append(time.perf_counter())
-        outs[i], stamps[i] = toks, ts
-
-    threads = []
-    for i, p in enumerate(prompts):   # staggered admissions
-        t_submit[i] = time.perf_counter()
-        q = eng.submit_stream(p, SERVE_NEW_TOKENS)
-        th = threading.Thread(target=consume, args=(i, q))
-        th.start()
-        threads.append(th)
+    wave = Wave(eng, "serve", SERVE_NEW_TOKENS)
+    for p in prompts:   # staggered admissions
+        wave.submit(p)
         time.sleep(0.03)
-    for th in threads:
-        th.join(timeout=900)
+    threads = wave.join()
     stats = eng.stats()
     eng.shutdown()
     launches = read_launches(flash)
@@ -705,7 +719,9 @@ def serve_phase(torch, np, tllama, TG, ContinuousEngine, flash):
     peak = torch.cuda.max_memory_allocated()
     check(not any(th.is_alive() for th in threads) and
           not eng._thread.is_alive(), "engine or consumer threads hung")
+    outs, stamps, t_submit = wave.outs, wave.stamps, wave.t_submit
     check("dead" not in stats, f"engine died: {stats.get('dead')}")
+    del eng, wave   # its KV cache: the kv sub-phase needs the room
 
     for i in range(len(prompts)):
         toks = outs.get(i, [])
@@ -769,9 +785,11 @@ def serve_phase(torch, np, tllama, TG, ContinuousEngine, flash):
     check(first_match == len(prompts),
           f"first tokens match generate for {first_match}/{len(prompts)}")
     step_breakdown(torch, params, cfg, prompts, flash)
+    torch.cuda.empty_cache()
+    kv_launches = serve_kv_phase(torch, np, cfg, params, flash)
     del params
     torch.cuda.empty_cache()
-    return launches
+    return launches, kv_launches
 
 
 def step_breakdown(torch, params, cfg, prompts, flash):
@@ -828,6 +846,327 @@ def step_breakdown(torch, params, cfg, prompts, flash):
         flash_ms["dec"] > 0 and flash_ms["dec"] == sum(flash_ms.values()))),
           f"decode tick: forward launches {fwd_launches} (want {want}), "
           f"device ms by kernel {flash_ms}")
+
+
+class Wave:
+    """Streams submitted to one engine, one consumer thread each: each
+    request's tokens, each token's arrival on the host clock
+    (``perf_counter``), and its first token's wall time (``time.time``,
+    the recorder's clock)."""
+
+    def __init__(self, eng, tag, n_new):
+        self.eng, self.tag, self.n_new = eng, tag, n_new
+        self.t_submit, self.outs, self.stamps, self.first_wall = {}, {}, {}, {}
+        self.threads = []
+
+    def submit(self, prompt, kw=None):
+        i = len(self.threads)
+        self.t_submit[i] = time.perf_counter()
+        q = self.eng.submit_stream(
+            prompt, self.n_new, obs_ctx={"request_id": f"{self.tag}-{i}",
+                                         "span_id": self.tag}, **(kw or {}))
+        th = threading.Thread(target=self._consume, args=(i, q))
+        th.start()
+        self.threads.append(th)
+
+    def _consume(self, i, q):
+        toks, ts = [], []
+        while True:
+            t = q.get(timeout=600)
+            if t is None:
+                break
+            if not toks:
+                self.first_wall[i] = time.time()
+            toks.append(t)
+            ts.append(time.perf_counter())
+        self.outs[i], self.stamps[i] = toks, ts
+
+    def join(self):
+        for th in self.threads:
+            th.join(timeout=900)
+        return self.threads
+
+    def tokens(self):
+        return [self.outs.get(i, []) for i in range(len(self.threads))]
+
+    def ttft(self):
+        """Submit to the first token's arrival, per request."""
+        return [self.stamps[i][0] - self.t_submit[i] if self.stamps.get(i)
+                else None for i in range(len(self.threads))]
+
+    def records(self):
+        """The recorder's request record of each."""
+        recs = {r.get("request_id"): r for r in self.eng._recorder.requests()}
+        return [recs.get(f"{self.tag}-{i}", {})
+                for i in range(len(self.threads))]
+
+
+def run_wave(eng, prompts, kws, tag, n_new, gap_s=0.03):
+    """Submit ``prompts`` ``gap_s`` apart and wait for them all; returns
+    tokens, TTFT and the recorder's request record of each."""
+    wave = Wave(eng, tag, n_new)
+    for p, kw in zip(prompts, kws):
+        wave.submit(p, kw)
+        time.sleep(gap_s)
+    check(not any(th.is_alive() for th in wave.join()), f"{tag} wave hung")
+    return wave.tokens(), wave.ttft(), wave.records()
+
+
+def sync_s(torch, fn):
+    """Host seconds of ``fn`` between two device syncs."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def serve_kv_phase(torch, np, cfg, params, flash):
+    """The prefix KV cache, sampling and a weight swap at 7b: a primer
+    request seeds the cache with a 256-token shared prefix; 8 prompts
+    (that prefix + distinct suffixes, rows 4-7 sampled) go through an
+    engine with the cache off (cold), then through the kv engine (warm,
+    every admission restores 256 tokens); a swap wave calls
+    ``load_params`` mid-flight. The path's launches are read there; then a
+    bare batcher on the same cache checks the restored rows bit for bit,
+    times a capture and a restore, and takes the greedy rows' cold top-2
+    margins."""
+    from ray_tpu_torch.models import generate as TG
+    from ray_tpu_torch.models.serving import (ContinuousBatcher,
+                                              ContinuousEngine)
+
+    rng = np.random.default_rng(1)
+    vocab = cfg.vocab_size
+    draw = lambda n: rng.integers(0, vocab, size=n).astype(np.int64)
+    prefix = draw(SERVE_KV_PREFIX)
+    prompts = [np.concatenate([prefix, draw(n)])
+               for n in SERVE_KV_SUFFIX_LENS]
+    primer = np.concatenate([prefix, draw(SERVE_KV_PRIMER_SUFFIX)])
+    kws = [{} if i < 4 else dict(SERVE_KV_SAMPLED, seed=1000 + i)
+           for i in range(len(prompts))]
+    n_new = SERVE_NEW_TOKENS
+    eng_kw = dict(max_slots=8, max_len=1024, decode_stride=8, sampling=True,
+                  device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_launches(flash)
+    t0 = time.perf_counter()
+    kv = ContinuousEngine(params, cfg, kv_cache_bytes=SERVE_KV_BYTES,
+                          kv_label="kv", **eng_kw)
+    warmup_s = time.perf_counter() - t0
+    cache = kv._batcher.prefix_cache
+    primer_toks, _, primer_rec = run_wave(kv, [primer], [{}], "primer",
+                                          n_new)
+    after_primer = cache.stats()
+    cold = ContinuousEngine(params, cfg, kv_cache_bytes=0, kv_label="cold",
+                            **eng_kw)
+    cold_toks, cold_ttft, cold_rec = run_wave(cold, prompts, kws, "cold",
+                                              n_new)
+    cold_stats = cold.stats()
+    cold.shutdown()
+    del cold
+    t_warm0 = time.time()
+    warm_toks, warm_ttft, warm_rec = run_wave(kv, prompts, kws, "warm",
+                                              n_new)
+    t_warm1 = time.time()
+    after_warm = cache.stats()
+    # a sampled request alone, twice, same seed
+    alone = [run_wave(kv, [prompts[4]], [kws[4]], f"alone{j}", n_new)[0][0]
+             for j in range(2)]
+
+    # the swap wave: two fresh prompts in flight, load_params of a clone,
+    # then a fresh prompt and a shared-prefix one held at the barrier
+    swap_prompts = [draw(n) for n in SERVE_KV_SWAP_LENS] + [prompts[1]]
+    clone = {k: ({kk: vv.clone() for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.clone())
+             for k, v in params.items()}
+    st0 = cache.stats()
+    swap_wave = Wave(kv, "swap", n_new)
+    for i in range(2):
+        swap_wave.submit(swap_prompts[i])
+        time.sleep(0.03)
+    t_wait = time.perf_counter() + 300
+    while len(swap_wave.first_wall) < 2 and time.perf_counter() < t_wait:
+        time.sleep(0.005)
+    swap_res = {}
+
+    def swap():
+        swap_res["out"] = kv.load_params(clone, timeout_s=600)
+        swap_res["stats"] = cache.stats()
+
+    swapper = threading.Thread(target=swap)
+    swapper.start()
+    while kv._pending_swap is None and swapper.is_alive():
+        time.sleep(0.001)
+    for i in (2, 3):
+        swap_wave.submit(swap_prompts[i])
+    swapper.join(timeout=900)
+    workers = swap_wave.join()
+    check(not swapper.is_alive() and not any(th.is_alive() for th in workers)
+          and "out" in swap_res, f"swap wave hung: {swap_res}")
+    swap_out, swap_firsts = swap_wave.tokens(), swap_wave.first_wall
+    swap_recs = swap_wave.records()
+    kv_stats = kv.stats()
+    # the swap's own stamp, taken inside the barrier before the held
+    # requests were admitted
+    swap_res["t"] = kv_stats["recorder"]["last_swap"]["t"]
+    warm_window = kv._recorder.window_summary(t_warm0, t_warm1)
+    kv.shutdown()
+    del kv, swap_wave, clone
+    launches = read_launches(flash)
+
+    # after the path's launches are read: a bare batcher on the same cache
+    # (the swap wave's shared-prefix request left the prefix's pages there)
+    b = ContinuousBatcher(params, cfg, max_slots=1, max_len=1024,
+                          prefix_cache=cache, sampling=True, device=DEV)
+    rid, _, _ = b.submit_ex(prompts[0], 2)
+    bare_cached = b.last_admission["cached_tokens"]
+    c, pk, pv = cache.lookup(prompts[0])
+    restored_equal = (c == bare_cached == SERVE_KV_PREFIX
+                      and torch.equal(b._cache["k"][:, 0, :c].cpu(), pk)
+                      and torch.equal(b._cache["v"][:, 0, :c].cpu(), pv))
+    b.cancel(rid)
+    restore_s = [sync_s(torch, lambda: b._restore(0, pk, pv))[0]
+                 for _ in range(2)]
+    page_bytes = 2 * pk.numel() * pk.element_size()
+    # a capture of one slot: a fresh 512-token prompt cancelled at once
+    # (its pages' pinned allocation included, which may reuse a block the
+    # swap's invalidated pages returned to the host allocator), then the
+    # page copy alone with the allocator's block reused
+    fresh_id = b.submit(draw(512), 8)
+    capture_s, _ = sync_s(torch, lambda: b.cancel(fresh_id))
+    pages = b._pages(0, 512)
+    capture_bytes = sum(t.numel() * t.element_size() for t in pages)
+    del pages
+    copy_s, _ = sync_s(torch, lambda: b._pages(0, 512))
+    # cold top-2 margins of the greedy rows' last prompt position
+    margins = []
+    with torch.inference_mode():
+        for i in range(4):
+            toks = torch.from_numpy(prompts[i]).to(DEV)[None, :]
+            logits = TG._forward_with_cache(params, toks, cfg, b._rows(0, 1),
+                                            0)[0, -1]
+            top = torch.topk(logits, 2).values
+            margins.append({"argmax": int(logits.argmax()),
+                            "margin": float(top[0] - top[1]),
+                            "max_abs_logit": float(logits.abs().max())})
+    del b
+
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+
+    # -- checks ---------------------------------------------------------
+    check("dead" not in kv_stats and "dead" not in cold_stats,
+          f"an engine died: {kv_stats.get('dead')} {cold_stats.get('dead')}")
+    for tag, outs in (("primer", primer_toks), ("cold", cold_toks),
+                      ("warm", warm_toks), ("alone", alone),
+                      ("swap", swap_out)):
+        for i, toks in enumerate(outs):
+            check(len(toks) == n_new and all(0 <= t < vocab for t in toks),
+                  f"{tag} request {i}: {len(toks)} tokens, want {n_new} "
+                  f"in-vocab")
+    warm_cached = [r.get("cached_tokens") for r in warm_rec]
+    check(all(cc == SERVE_KV_PREFIX for cc in warm_cached),
+          f"warm admissions restored {warm_cached} tokens, want "
+          f"{SERVE_KV_PREFIX} each")
+    check(restored_equal, "the bare batcher's restored rows [0, 256) differ "
+                          "from the cached pages")
+    first_cmp = []
+    for i, m in enumerate(margins):
+        rel = m["margin"] / m["max_abs_logit"]
+        row = {"row": i, "cold": cold_toks[i][0], "warm": warm_toks[i][0],
+               "cold_argmax_solo": m["argmax"], "margin": m["margin"],
+               "margin_rel": rel, "checked": rel > WARM_MARGIN_REL_TOL}
+        first_cmp.append(row)
+        if row["cold"] != row["warm"]:
+            print(f"warm/cold first-token mismatch, row {i}: {row}",
+                  flush=True)
+    check(any(r["checked"] for r in first_cmp),
+          f"no greedy row's cold top-2 margin exceeds {WARM_MARGIN_REL_TOL}: "
+          f"the warm/cold first-token check compared nothing: {first_cmp}")
+    bad = [r for r in first_cmp if r["checked"] and r["cold"] != r["warm"]]
+    check(not bad, f"warm first tokens differ from cold above the margin "
+                   f"tolerance {WARM_MARGIN_REL_TOL}: {bad}")
+    check(alone[0] == alone[1], f"a sampled request alone, same seed, gave "
+                                f"{alone[0]} then {alone[1]}")
+    admitted = cold_stats["admitted"] + kv_stats["admitted"]
+    decode_steps = cold_stats["decode_steps"] + kv_stats["decode_steps"]
+    # every admission's prefill (whole prompt or uncached suffix, at least
+    # 64 rows) is one tcb launch a layer, and the engines warm no prefill;
+    # the decode steps launch dec, and so does the engines' warmup
+    want_by_kernel = {"tcb": cfg.n_layers * admitted,
+                      "dec": cfg.n_layers * decode_steps}
+    got = {kern: launches[f"flash_fwd_{kern}"] for kern in want_by_kernel}
+    check(got["tcb"] == want_by_kernel["tcb"] > 0,
+          f"kv sub-phase: tcb launched {got['tcb']} times, the path's "
+          f"{admitted} prefills make {want_by_kernel['tcb']}")
+    check(got["dec"] >= want_by_kernel["dec"] > 0,
+          f"kv sub-phase: dec launched {got['dec']} times, want >= "
+          f"{want_by_kernel['dec']}")
+    check(launches["flash_fwd_simt"] == 0,
+          f"the float32 forward kernel ran in bf16 serving: {launches}")
+    st1 = swap_res["stats"]
+    resident = st0["pages"] + st1["inserts"] - st0["inserts"]
+    check(swap_res["out"]["weight_swaps"] == kv_stats["weight_swaps"] == 1,
+          f"weight_swaps {swap_res['out']} {kv_stats['weight_swaps']}")
+    check(st1["evictions"] == st0["evictions"] and
+          st1["invalidations"] - st0["invalidations"] == resident,
+          f"swap invalidated {st1['invalidations'] - st0['invalidations']} "
+          f"pages, {resident} were resident (before {st0}, after {st1})")
+    check(all(swap_firsts[i] < swap_res["t"] for i in (0, 1)) and
+          all(r.get("t_admit", 0) > swap_res["t"] for r in swap_recs[2:]),
+          f"swap order: first tokens {swap_firsts}, swap at "
+          f"{swap_res['t']}, held admissions {swap_recs[2:]}")
+    check(swap_recs[3].get("cached_tokens") == 0,
+          f"the first shared-prefix admission after the swap restored "
+          f"{swap_recs[3].get('cached_tokens')} tokens")
+
+    med = lambda xs: float(np.median(xs))
+    summ = kv_stats["recorder"]
+    pick = ("decode_efficiency", "overhead_frac", "tick_gap_p50_s",
+            "tick_gap_p99_s", "tick_gap_max_s", "phase_s", "phase_sum_ratio",
+            "ttft_p50_s", "tpot_p50_s", "window_ticks")
+    emit({"phase": "serve_kv", "config": "7b, 32 layers, bf16, attn flash, "
+                                         "prefix cache, sampling",
+          "engine": dict({k: v for k, v in eng_kw.items() if k != "device"},
+                         kv_cache_bytes=SERVE_KV_BYTES),
+          "prefix_tokens": SERVE_KV_PREFIX,
+          "suffix_lens": list(SERVE_KV_SUFFIX_LENS), "new_tokens": n_new,
+          "sampled_rows": {"rows": [4, 5, 6, 7], **SERVE_KV_SAMPLED},
+          "engine_warmup_s": warmup_s,
+          "ttft_cold_s": cold_ttft, "ttft_warm_s": warm_ttft,
+          "ttft_median_cold_s": med(cold_ttft),
+          "ttft_median_warm_s": med(warm_ttft),
+          "warm_cached_tokens": warm_cached,
+          "kv_restore_s_warm": [r.get("kv_restore_s") for r in warm_rec],
+          "prefill_s_warm": [r.get("prefill_s") for r in warm_rec],
+          "prefill_s_cold": [r.get("prefill_s") for r in cold_rec],
+          "primer": {"cached_tokens": primer_rec[0].get("cached_tokens"),
+                     "prefill_s": primer_rec[0].get("prefill_s")},
+          "restore_direct_s": restore_s, "restore_bytes": page_bytes,
+          "restore_gb_per_s": page_bytes / min(restore_s) / 1e9,
+          "capture_direct_s": capture_s, "capture_copy_s": copy_s,
+          "capture_bytes": capture_bytes,
+          "capture_gb_per_s": capture_bytes / copy_s / 1e9,
+          "host_page_bytes": {"after_primer": after_primer["bytes"],
+                              "after_warm": after_warm["bytes"],
+                              "pages_after_warm": after_warm["pages"]},
+          "first_tokens_warm_vs_cold": first_cmp,
+          "margin_rel_tol": WARM_MARGIN_REL_TOL,
+          "sampled_alone_repeat_equal": alone[0] == alone[1],
+          "sampled_alone_equals_warm_wave": alone[0] == warm_toks[4],
+          "swap": {"load_params": swap_res["out"],
+                   "pages_before": st0["pages"], "stats_after": st1,
+                   "held_cached_tokens": [r.get("cached_tokens")
+                                          for r in swap_recs[2:]]},
+          "kv_stats": kv_stats["kv"],
+          "recorder": {k: summ.get(k) for k in pick},
+          "recorder_warm_wave": {k: warm_window.get(k) for k in pick},
+          "recorder_cold": {k: cold_stats["recorder"].get(k) for k in pick},
+          "peak_mem_bytes": peak, "launches": launches,
+          "fwd_launches_expected_by_kernel": want_by_kernel})
+    return launches
 
 
 # ------------------------------------------------------------ phase 7
@@ -1094,8 +1433,8 @@ def main(argv=None) -> int:
         grad_check_phase(torch, tllama, tts)
     launches = {}
     if "serve" in only:
-        launches["serve"] = serve_phase(torch, np, tllama, TG,
-                                        ContinuousEngine, flash)
+        launches["serve"], launches["serve_kv"] = serve_phase(
+            torch, np, tllama, TG, ContinuousEngine, flash)
     if "train" in only:
         launches["train"] = train_phase(torch, np, tllama, tts, tflops,
                                         flash)

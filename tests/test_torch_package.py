@@ -37,8 +37,12 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     files.append(ROOT / "chip_smoke.py")
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"ray_tpu_torch/ops/flash.py", "ray_tpu_torch/models/llama.py",
+            "ray_tpu_torch/models/serving.py",
             "ray_tpu_torch/parallel/train_step.py",
-            "ray_tpu_torch/util/flops.py", "chip_smoke.py"} <= names
+            "ray_tpu_torch/util/flops.py",
+            "ray_tpu_torch/util/prefix_hash.py",
+            "ray_tpu_torch/util/recorder_core.py",
+            "ray_tpu_torch/util/engine_recorder.py", "chip_smoke.py"} <= names
     bad = [(f.relative_to(ROOT), mod) for f in files
            for mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
