@@ -13,7 +13,8 @@ process per source, all at once), then:
    card, in bf16 at the shapes the serving and training paths give them
    (7b prefill, cached prefill, batched decode with per-row positions at
    7b and at the 1b preset's GQA group, one 7b row over 4,096 keys, the 1b
-   train step, 7b's d 128 at s 2048) and at small cases (head_dim 16 and
+   train step, 7b's d 128 at s 2048, speculative decode's 5-row verify at
+   7b, the 8x410m MoE preset's decode and prefill) and at small cases (head_dim 16 and
    64, unaligned s, GQA, non-causal, a fully masked offset, a dead decode
    row beside rows that see only the first key chunk, float32, cuts at the
    edges of the 64-row and 64-key tiles, one row below and at the
@@ -56,15 +57,39 @@ process per source, all at once), then:
    cache (restored rows equal the pages bit for bit; a restore and a
    capture timed); TTFT warm and cold, restore and prefill seconds, host
    page bytes and the recorder's summary are reported;
-7. training: the 1b preset at full width and 22 layers, fp32 master
+7. the serving front end (``llm``): ``ContinuousLLM("7b")`` (8 slots,
+   max_len 1024, stride 8, other arguments at their defaults) and its
+   ``StaticLLM`` control (8 rows, prompts padded to 512, 32 new tokens),
+   each driven by ``poisson_load`` at 4 requests/s for 40 s (seed 0, 16
+   in flight) with prompts of the serve lengths and 32 new tokens, through
+   ``__call__`` on an asyncio loop thread; no request may fail, each
+   stream has 32 in-vocab tokens and its first equals batch-1
+   ``generate``, launches exactly as the admissions, decode steps and
+   batches give; rps, tok/s, latency and TTFT p50/p99, shed, peak memory
+   and the prefix-cache captures' copy time for both;
+8. speculative decode (``spec``): the 7b target with itself and with the
+   1b preset as the draft (k 4; b 1, and b 4 for the 1b draft; 256-token
+   prompts, 64 new): rounds, acceptance, ms a token against plain
+   ``generate`` at the same b; every emitted token of every row equals
+   the argmax of one teacher-forced target forward over the prompt and
+   the run's own output wherever that forward's top-2 margin is at least
+   ``WARM_MARGIN_REL_TOL``, and the launches exactly as the rounds give;
+9. the MoE family (``moe``): the ``8x410m`` preset at full width and 24
+   layers, greedy ``generate`` at b 4 (256-token prompts, 32 new) and a
+   ``ContinuousEngine`` answering 8 staggered requests; first tokens
+   against the drop-free full forward (margin rule) and batch-1
+   ``generate`` (exact); prefill and decode-step times, device busy
+   against host wall for a profiled 8-row tick, the MoE FFN's share and
+   the decode weight-read bound;
+10. training: the 1b preset at full width and 22 layers, fp32 master
    params from a seeded generator, bf16 compute, flash attention, remat,
    8 AdamW steps on a fixed [4, 2049] token batch; finite and falling loss,
    tokens/s, MFU, peak memory, per-step garbage-collector counts, SM clocks
    before and after, and a profiled step whose forward time must all be
    the tensor-core kernel's;
-8. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
+11. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
 
-Each path (serve, serve_kv, train) zeroes every kernel's launch count
+Each path (serve, serve_kv, llm, spec, moe, train) zeroes every kernel's launch count
 just before it runs and reads them just after; a kernel of the paths that
 was not launched fails the run (the float32 CUDA-core forward is on no
 path: its entry reports its launches, 0, and its cases).
@@ -244,6 +269,12 @@ KERNEL_CASES = {
     "sq40_sk300_offset100_d64": (2, 40, 300, 8, 2, 64, True, 100,
                                  "bfloat16"),
     "train_7b_d128": (1, 2048, 2048, 32, 32, 128, True, 0, "bfloat16"),
+    # speculative decode's verify: the target's current token and 4
+    # drafts, 5 rows at an offset over a 1,024-key cache
+    "verify_7b_k4": (1, 5, 1024, 32, 32, 128, True, 700, "bfloat16"),
+    # the 8x410m MoE preset: 16/16 heads of 64, engine decode and prefill
+    "decode_8x410m_b8": (8, 1, 1024, 16, 16, 64, True, None, "bfloat16"),
+    "prefill_8x410m": (1, 512, 512, 16, 16, 64, True, 0, "bfloat16"),
 }
 # the launch each path makes most: train and prefill on the tensor-core
 # kernel, decode on the split-KV one; float32 (on neither path) on the
@@ -253,7 +284,8 @@ HEADLINE_CASES = {"tcb": "train_1b_d64_gqa", "dec": "decode_7b_b8",
 LIBRARY_CASES = ("prefill_7b", "cached_prefill_7b", "decode_7b_b8",
                  "decode_7b_b1", "decode_1b_gqa_b8", "decode_7b_b1_s4096",
                  "decode_dead_and_first_chunk_d64", "fp32_d128_decode",
-                 "train_1b_d64_gqa", "train_7b_d128")
+                 "train_1b_d64_gqa", "train_7b_d128", "verify_7b_k4",
+                 "decode_8x410m_b8", "prefill_8x410m")
 # the crossover cases: bf16, d 128, s_k 1024, the rows at the end of the
 # keys, one row below and at fwd_tiling's threshold
 THRESHOLD_SHAPE = (8, 1024, 32, 32, 128)   # b, sk, hq, hkv, d
@@ -1346,7 +1378,512 @@ def train_phase(torch, np, tllama, tts, tflops, flash):
     return launches
 
 
-PHASES = ("kernel", "bwd", "integration", "grad", "serve", "train")
+# ------------------------------------------------------------ phases 8-10
+
+LLM_RPS, LLM_DURATION_S, LLM_MAX_INFLIGHT = 4.0, 40.0, 16
+SPEC_K, SPEC_PROMPT, SPEC_NEW = 4, 256, 64
+MOE_PRESET, MOE_BATCH, MOE_PROMPT, MOE_NEW = "8x410m", 4, 256, 32
+
+
+class LoopThread:
+    """An asyncio loop on a thread of its own, where the serving classes'
+    ``__call__`` runs; ``run(coro)`` waits for one coroutine from any
+    thread."""
+
+    def __init__(self):
+        import asyncio
+
+        self.asyncio = asyncio
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def run(self, coro, timeout=600):
+        return self.asyncio.run_coroutine_threadsafe(
+            coro, self.loop).result(timeout)
+
+    def close(self):
+        async def cancel_rest():   # e.g. the @batch flush loop
+            rest = [t for t in self.asyncio.all_tasks()
+                    if t is not self.asyncio.current_task()]
+            for t in rest:
+                t.cancel()
+            await self.asyncio.gather(*rest, return_exceptions=True)
+
+        self.run(cancel_rest(), timeout=60)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=60)
+        self.loop.close()
+
+
+def time_captures(torch, batcher):
+    """Time every prefix-cache capture of ``batcher`` (the device-to-host
+    copy of a finished slot's KV and its insert), synchronised on both
+    sides; returns the record it fills: calls, total and largest ms."""
+    rec = {"calls": 0, "total_ms": 0.0, "max_ms": 0.0}
+    capture = batcher._capture
+
+    def timed(slot, req):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        capture(slot, req)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rec["calls"] += 1
+        rec["total_ms"] += ms
+        rec["max_ms"] = max(rec["max_ms"], ms)
+
+    batcher._capture = timed
+    return rec
+
+
+def llm_leg(torch, llm, prompts, loop, streaming, n_new):
+    """``poisson_load`` at LLM_RPS for LLM_DURATION_S against ``llm``: each
+    request the next prompt, ``n_new`` tokens; returns the load's report
+    (plus peak memory) and each request's tokens by index."""
+    from ray_tpu_torch.serve.llm import poisson_load
+
+    lock = threading.Lock()
+    count = [0]
+    outs = {}
+
+    def fire():
+        with lock:
+            i = count[0]
+            count[0] += 1
+        body = {"tokens": prompts[i % len(prompts)].tolist(),
+                "max_new_tokens": n_new}
+        t0 = time.perf_counter()
+
+        async def go():
+            if not streaming:   # one response when the batch is done
+                toks = await llm(body)
+                return toks, time.perf_counter() - t0
+            gen = await llm(body)
+            toks, ttft = [], None
+            async for tok in gen:
+                if ttft is None:
+                    ttft = time.perf_counter() - t0
+                toks.append(int(tok))
+            return toks, ttft
+
+        toks, ttft = loop.run(go())
+        outs[i] = toks
+        return len(toks), ttft
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = poisson_load(fire, rps=LLM_RPS, duration_s=LLM_DURATION_S, seed=0,
+                       max_inflight=LLM_MAX_INFLIGHT)
+    torch.cuda.synchronize()
+    res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    return res, outs
+
+
+def llm_phase(torch, np, TG, flash):
+    """The serving front end at 7b: ``ContinuousLLM`` (8 slots, max_len
+    1024, stride 8) and its ``StaticLLM`` control (8 rows, prompts padded
+    to 512, 32 new tokens), each under ``poisson_load`` at 4 requests/s
+    for 40 s (seed 0, 16 in flight), prompts of SERVE_PROMPT_LENS, 32 new
+    tokens each, ``__call__`` on an asyncio loop thread. The continuous
+    leg runs the default 64 MiB prefix cache: at 7b a request's KV is 512
+    KiB a token, so most captures are copied to the host and then refused
+    as oversize; their copies are timed (synchronised) and reported."""
+    from ray_tpu_torch.serve.llm import ContinuousLLM, ServeHooks, StaticLLM
+
+    class Hooks(ServeHooks):
+        def __init__(self):
+            self.ticks, self.batches = [], []
+
+        def on_tick(self, name, active, slots):
+            self.ticks.append((active, slots))
+
+        def on_batch(self, fn, size, max_size):
+            self.batches.append(size)
+
+    n_new = SERVE_NEW_TOKENS
+    rng = np.random.default_rng(4)
+    n_prompts = int(LLM_RPS * LLM_DURATION_S * 2) + 16
+    prompts = [rng.integers(0, 32000, size=SERVE_PROMPT_LENS[
+        i % len(SERVE_PROMPT_LENS)]).astype(np.int64)
+        for i in range(n_prompts)]
+    loop = LoopThread()
+    hooks = Hooks()
+
+    zero_launches(flash)
+    t0 = time.perf_counter()
+    llm = ContinuousLLM("7b", max_slots=8, max_len=1024, decode_stride=8,
+                        hooks=hooks, device=DEV)
+    cb_init_s = time.perf_counter() - t0
+    captures = time_captures(torch, llm.engine._batcher)
+    cb, cb_outs = llm_leg(torch, llm, prompts, loop, True, n_new)
+    cb_stats = llm.engine_stats()
+    llm.engine.shutdown()
+    cb_launches = read_launches(flash)
+    check(llm.cfg.vocab_size == 32000 and llm.cfg.attn_impl == "flash",
+          f"the 7b preset: {llm.cfg}")
+    # each stream's first token against batch-1 generate on llm.params,
+    # outside the count
+    first_match = sum(
+        int(TG.generate(llm.params, prompts[i % n_prompts][None, :], llm.cfg,
+                        max_new_tokens=1, device=DEV)[0, 0]) == toks[0]
+        for i, toks in cb_outs.items() if toks)
+    n_layers = llm.cfg.n_layers
+    del llm
+    gc.collect()   # the engine's tick callback refers back to llm
+    torch.cuda.empty_cache()
+
+    zero_launches(flash)
+    t0 = time.perf_counter()
+    static = StaticLLM("7b", max_batch=8, prompt_pad=512, max_new=n_new,
+                       hooks=hooks, device=DEV)
+    st_init_s = time.perf_counter() - t0
+    st, st_outs = llm_leg(torch, static, prompts, loop, False, n_new)
+    st_launches = read_launches(flash)
+    loop.close()
+    del static
+    gc.collect()   # its @batch wrapper refers back to it
+    torch.cuda.empty_cache()
+    launches = {key: cb_launches[key] + st_launches[key]
+                for key in cb_launches}
+
+    emit({"phase": "llm", "config": "7b, 32 layers, bf16, attn flash",
+          "load": {"rps": LLM_RPS, "duration_s": LLM_DURATION_S, "seed": 0,
+                   "max_inflight": LLM_MAX_INFLIGHT, "new_tokens": n_new,
+                   "prompt_lens": list(SERVE_PROMPT_LENS)},
+          "continuous": dict(cb, init_s=cb_init_s,
+                             engine={"max_slots": 8, "max_len": 1024,
+                                     "decode_stride": 8},
+                             engine_stats=cb_stats,
+                             ticks=len(hooks.ticks),
+                             max_active_at_tick=max(
+                                 (a for a, _ in hooks.ticks), default=0),
+                             first_token_match=f"{first_match}/"
+                                               f"{len(cb_outs)}",
+                             captures=captures,
+                             launches=cb_launches),
+          "static": dict(st, init_s=st_init_s,
+                         config={"max_batch": 8, "prompt_pad": 512,
+                                 "max_new": n_new},
+                         batch_sizes=hooks.batches, launches=st_launches),
+          "launches": launches})
+    check(cb["failed"] == 0 and cb["completed"] > 0,
+          f"continuous leg: {cb['failed']} failed, {cb['completed']} done")
+    check(st["failed"] == 0 and st["completed"] > 0,
+          f"static leg: {st['failed']} failed, {st['completed']} done")
+    for tag, outs in (("continuous", cb_outs), ("static", st_outs)):
+        bad = [i for i, toks in outs.items()
+               if len(toks) != n_new or not all(0 <= t < 32000 for t in toks)]
+        check(not bad, f"{tag} leg: requests {bad} lack {n_new} in-vocab "
+                       f"tokens")
+    check(first_match == len(cb_outs),
+          f"continuous leg: first tokens match batch-1 generate for "
+          f"{first_match}/{len(cb_outs)}")
+    check(cb_stats["max_slots"] == 8 and "dead" not in cb_stats,
+          f"engine stats {cb_stats}")
+    check(any(a > 0 and s == 8 for a, s in hooks.ticks),
+          f"the tick hook never saw a live row: {hooks.ticks[:8]}")
+    # a prefill a layer for every admission and static batch; a decode
+    # step a layer for every engine step and each static batch's n_new - 1.
+    # The engine's decode_steps include its warmup: strides 1 and 8 over
+    # buckets 1 and 8, 18 steps
+    check(cb_stats["decode_steps"] >= 18, f"engine stats {cb_stats}")
+    want = {"tcb": n_layers * (cb_stats["admitted"] + len(hooks.batches)),
+            "dec": n_layers * (cb_stats["decode_steps"]
+                               + len(hooks.batches) * (n_new - 1))}
+    for kern, w in want.items():
+        check(launches[f"flash_fwd_{kern}"] == w > 0,
+              f"llm: {kern} launched {launches[f'flash_fwd_{kern}']} times, "
+              f"the path made {w} calls of its shapes")
+    check(launches["flash_fwd_simt"] == 0, f"llm: simt ran: {launches}")
+    return launches
+
+
+def teacher_forced(torch, TG, params, cfg, prompt, toks):
+    """The greedy choice and its top-2 margin (over max |logit|) at every
+    position of ``toks`` given ``prompt`` and the tokens of ``toks``
+    before it, from one cached forward over both: ([B, n] argmax, [B, n]
+    margins), on the host."""
+    seq = torch.cat([prompt, toks[:, :-1]], dim=1)
+    cache = TG.init_cache(cfg, seq.shape[0], seq.shape[1], device=DEV)
+    logits = TG._forward_with_cache(params, seq, cfg, cache, 0,
+                                    last_only=False)[:, prompt.shape[1] - 1:]
+    top = logits.topk(2, dim=-1)
+    margins = ((top.values[..., 0] - top.values[..., 1])
+               / logits.abs().amax(-1))
+    return top.indices[..., 0].cpu(), margins.cpu()
+
+
+def spec_phase(torch, np, tllama, TG, flash):
+    """Greedy speculative decode with the 7b target: the target drafting
+    for itself (k 4, b 1) and the 1b preset drafting (k 4, b 1 and b 4);
+    prompts of 256 tokens, 64 new. Rounds, acceptance and ms per token
+    against plain ``generate`` at the same b. Exactness by teacher
+    forcing: one target forward over each run's prompt and output gives
+    the greedy choice after every emitted prefix, and every emitted token
+    must equal it wherever its top-2 margin is at least
+    WARM_MARGIN_REL_TOL (the verify runs ``tcb`` on 5 rows, the forward
+    ``tcb`` on 320, so bf16 bits may differ at near ties); every row must
+    have such positions. How far each run equals plain ``generate`` is
+    reported, not held: after a near tie the two may go apart."""
+    cfg = dataclasses.replace(tllama.PRESETS["7b"], attn_impl="flash")
+    dcfg = dataclasses.replace(tllama.PRESETS["1b"], attn_impl="flash")
+    params = tllama.init_params(
+        cfg, generator=torch.Generator(device=DEV).manual_seed(0),
+        device=DEV)
+    dparams = tllama.init_params(
+        dcfg, generator=torch.Generator(device=DEV).manual_seed(1),
+        device=DEV)
+    check(dcfg.vocab_size == cfg.vocab_size, "draft and target vocabularies")
+    rng = np.random.default_rng(5)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(4, SPEC_PROMPT))).to(DEV)
+    runs = (("self_b1", params, cfg, 1), ("1b_b1", dparams, dcfg, 1),
+            ("1b_b4", dparams, dcfg, 4))
+
+    def spec(dp, dc, b, n=SPEC_NEW):
+        return TG.generate_speculative(
+            params, dp, prompts[:b], cfg, dc, max_new_tokens=n,
+            speculate_k=SPEC_K, return_stats=True, device=DEV)
+
+    for dp, dc in ((params, cfg), (dparams, dcfg)):   # first calls of
+        spec(dp, dc, 1, 8)                             # these shapes
+    zero_launches(flash)
+    recs = {}
+    for name, dp, dc, b in runs:
+        before = read_launches(flash)
+        wall, (out, stats) = sync_s(torch, lambda: spec(dp, dc, b))
+        ran = {k: v - before[k] for k, v in read_launches(flash).items()}
+        want = {"tcb": cfg.n_layers * (1 + stats["rounds"]) + dc.n_layers,
+                "dec": dc.n_layers * SPEC_K * stats["rounds"]}
+        recs[name] = {"b": b, "draft": "7b" if dc is cfg else "1b",
+                      "out": out, "stats": stats, "wall_s": wall,
+                      "launches": ran, "want": want}
+    launches = read_launches(flash)
+    # plain generate at each b: the yardstick
+    plain = {}
+    for b in (1, 4):
+        wall, ref = sync_s(torch, lambda: TG.generate(
+            params, prompts[:b], cfg, max_new_tokens=SPEC_NEW, device=DEV))
+        plain[b] = {"out": ref.cpu(), "wall_s": wall}
+    out_recs = {}
+    for name, r in recs.items():
+        p = plain[r["b"]]
+        best, margins = teacher_forced(torch, TG, params, cfg,
+                                       prompts[:r["b"]], r["out"])
+        got = r["out"].cpu()
+        held = margins >= WARM_MARGIN_REL_TOL
+        wrong = (got != best) & held
+        equal_to = [next((j for j in range(SPEC_NEW)
+                          if got[i, j] != p["out"][i, j]), SPEC_NEW)
+                    for i in range(r["b"])]
+        n_tok = r["b"] * SPEC_NEW
+        out_recs[name] = {
+            "b": r["b"], "draft": r["draft"], "k": SPEC_K, **r["stats"],
+            "ms_per_token": r["wall_s"] * 1e3 / n_tok,
+            "plain_ms_per_token": p["wall_s"] * 1e3 / n_tok,
+            "speedup_vs_plain": p["wall_s"] / r["wall_s"],
+            "equal_to_generate_up_to": equal_to,
+            "teacher_forced_checked": held.sum(1).tolist(),
+            "teacher_forced_wrong": [row.nonzero().flatten().tolist()
+                                     for row in wrong],
+            "teacher_forced_below_margin": [
+                [j for j in range(SPEC_NEW) if not held[i, j]
+                 and got[i, j] != best[i, j]] for i in range(r["b"])],
+            "launches": r["launches"], "launches_expected": r["want"]}
+    emit({"phase": "spec", "config": "target 7b, 32 layers, bf16, attn "
+                                     "flash; draft 7b itself or 1b",
+          "prompt_len": SPEC_PROMPT, "new_tokens": SPEC_NEW,
+          "margin_rel_tol": WARM_MARGIN_REL_TOL, "runs": out_recs,
+          "launches": launches})
+    for name, r in out_recs.items():
+        for kern in ("tcb", "dec"):
+            check(r["launches"][f"flash_fwd_{kern}"]
+                  == r["launches_expected"][kern] > 0,
+                  f"spec {name}: {kern} launched "
+                  f"{r['launches'][f'flash_fwd_{kern}']} times, the run's "
+                  f"{r['rounds']} rounds make {r['launches_expected'][kern]}")
+        check(not any(r["teacher_forced_wrong"]),
+              f"spec {name}: emitted tokens differ from the target's "
+              f"greedy choice at positions {r['teacher_forced_wrong']} "
+              f"(margins >= {WARM_MARGIN_REL_TOL})")
+        check(all(n > 0 for n in r["teacher_forced_checked"]),
+              f"spec {name}: rows with no position whose margin is at "
+              f"least {WARM_MARGIN_REL_TOL}: {r['teacher_forced_checked']}")
+    check(launches["flash_fwd_simt"] == 0, f"spec: simt ran: {launches}")
+    del params, dparams, recs, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_phase(torch, np, TG, flash):
+    """The MoE family at full width and depth: ``8x410m`` (24 layers, 8
+    experts, top 2), random bf16 weights. Greedy ``generate`` at b 4 over
+    256-token prompts, 32 new tokens; a ``ContinuousEngine`` (8 slots,
+    max_len 1024, stride 8) answering 8 staggered requests of
+    SERVE_PROMPT_LENS; then, outside the count, the checks' references, a
+    timed prefill, an 8-row decode tick on the host clock and one
+    profiled tick (device busy, the MoE FFN's share)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ray_tpu_torch.models import moe as tmoe
+    from ray_tpu_torch.models.serving import (ContinuousBatcher,
+                                              ContinuousEngine)
+
+    cfg = dataclasses.replace(tmoe.PRESETS[MOE_PRESET], attn_impl="flash")
+    t0 = time.perf_counter()
+    params = tmoe.init_params(
+        cfg, generator=torch.Generator(device=DEV).manual_seed(0),
+        device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size() for t in
+                      (params["embed"], params["final_norm"],
+                       params["lm_head"], *params["layers"].values()))
+    rng = np.random.default_rng(6)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(MOE_BATCH, MOE_PROMPT))).to(DEV)
+    eng_prompts = [rng.integers(0, cfg.vocab_size, size=s).astype(np.int64)
+                   for s in SERVE_PROMPT_LENS]
+    TG.generate(params, prompts[:, :16], cfg, max_new_tokens=2, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_launches(flash)
+    gen_s, out = sync_s(torch, lambda: TG.generate(
+        params, prompts, cfg, max_new_tokens=MOE_NEW, device=DEV))
+    eng = ContinuousEngine(params, cfg, max_slots=8, max_len=1024,
+                           decode_stride=8, device=DEV)
+    wave = Wave(eng, "moe", MOE_NEW)
+    for p in eng_prompts:
+        wave.submit(p)
+        time.sleep(0.03)
+    threads = wave.join()
+    stats = eng.stats()
+    eng.shutdown()
+    launches = read_launches(flash)
+    check(not any(th.is_alive() for th in threads), "moe engine wave hung")
+    eng_outs = wave.tokens()
+    del eng, wave
+    peak = torch.cuda.max_memory_allocated()
+
+    # references: the drop-free full forward's argmax and margin at the
+    # last prompt position, and each engine prompt's batch-1 generate
+    free = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    with torch.inference_mode():
+        last = tmoe.forward(params, prompts, free)[:, -1]
+    top = last.topk(2, dim=-1).values
+    rel = ((top[:, 0] - top[:, 1]) / last.abs().amax(-1)).tolist()
+    ref_first = last.argmax(-1).tolist()
+    first_cmp = [{"row": i, "generate": int(out[i, 0]), "forward": ref_first[i],
+                  "margin_rel": rel[i], "checked": rel[i] > WARM_MARGIN_REL_TOL}
+                 for i in range(MOE_BATCH)]
+    eng_first = [int(TG.generate(params, p[None, :], cfg, max_new_tokens=1,
+                                 device=DEV)[0, 0]) for p in eng_prompts]
+
+    # timing, outside the count: the b 4 prefill, the engine's b 1
+    # prefills, an 8-row tick of k = 8 steps, and one profiled tick
+    cache = TG.init_cache(cfg, MOE_BATCH, MOE_PROMPT + MOE_NEW, device=DEV)
+    prefill_ms = [sync_s(torch, lambda: TG._forward_with_cache(
+        params, prompts, cfg, cache, 0))[0] * 1e3 for _ in range(3)]
+    b = ContinuousBatcher(params, cfg, max_slots=8, max_len=1024, device=DEV)
+    prefill_b1_ms = {}
+    for p in eng_prompts:
+        prefill_b1_ms[len(p)] = sync_s(torch, lambda: b.submit(p, 64))[0] * 1e3
+    k, ticks = 8, 2
+    b.step_many(k)
+    tick_s, _ = sync_s(torch, lambda: [b.step_many(k) for _ in range(ticks)])
+    step_ms = tick_s * 1e3 / (ticks * k)
+    moe_ffn = tmoe._moe_ffn
+
+    def traced_ffn(*a, **kw):
+        with record_function("moe_ffn"):
+            return moe_ffn(*a, **kw)
+
+    tmoe._moe_ffn = traced_ffn
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            b.step_many(k)
+            torch.cuda.synchronize()
+    finally:
+        tmoe._moe_ffn = moe_ffn
+    del b
+    cuda = torch.autograd.DeviceType.CUDA
+    per_kernel = {e.key: e.self_device_time_total / 1e3 / k
+                  for e in prof.key_averages()
+                  if e.device_type == cuda and e.self_device_time_total > 0
+                  and e.key != "moe_ffn"}
+    busy = sum(per_kernel.values())
+    ffn_ms = sum(e.device_time_total / 1e3 / k for e in prof.key_averages()
+                 if e.key == "moe_ffn" and e.device_type != cuda)
+    flash_ms = fwd_ms_by_kernel(per_kernel)
+    top_k = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
+    # a decode step reads every weight but the embedding table (8 rows)
+    step_bytes = (param_bytes - params["embed"].numel()
+                  * params["embed"].element_size())
+    emit({"phase": "moe", "config": f"{MOE_PRESET}, {cfg.n_layers} layers, "
+                                    f"{cfg.n_experts} experts top "
+                                    f"{cfg.top_k}, bf16, attn flash",
+          "params": cfg.num_params(), "active_params": cfg.active_params(),
+          "param_bytes": param_bytes, "init_params_s": init_s,
+          "generate": {"b": MOE_BATCH, "prompt_len": MOE_PROMPT,
+                       "new_tokens": MOE_NEW, "wall_s": gen_s,
+                       "tok_per_s": MOE_BATCH * MOE_NEW / gen_s},
+          "first_tokens_vs_dropfree_forward": first_cmp,
+          "margin_rel_tol": WARM_MARGIN_REL_TOL,
+          "engine": {"max_slots": 8, "max_len": 1024, "decode_stride": 8,
+                     "prompt_lens": list(SERVE_PROMPT_LENS), "stats": stats,
+                     "first_token_match": sum(
+                         int(o[:1] == [f]) for o, f in
+                         zip(eng_outs, eng_first))},
+          "prefill_b4_s256_ms": prefill_ms,
+          "prefill_b1_ms_by_prompt_len": prefill_b1_ms,
+          "decode_rows": 8, "decode_step_ms": step_ms,
+          "decode_tok_per_s_8_rows": 8 * 1e3 / step_ms,
+          "decode_weight_read_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+          "profiled_tick": {
+              "device_busy_ms_per_step": busy if busy else "not measured",
+              "host_wall_ms_per_step": step_ms,
+              "device_idle_share": 1 - busy / step_ms if busy else
+              "not measured",
+              "moe_ffn_ms_per_step": ffn_ms if ffn_ms else "not measured",
+              "moe_ffn_share_of_busy": ffn_ms / busy if ffn_ms and busy
+              else "not measured",
+              "flash_fwd_ms_per_step_by_kernel": flash_ms,
+              "top_kernels_ms_per_step": [[n[:80], t] for n, t in top_k]},
+          "peak_mem_bytes": peak, "launches": launches})
+    check(all(len(t) == MOE_NEW and all(0 <= x < cfg.vocab_size for x in t)
+              for t in out.tolist() + eng_outs),
+          "moe: a stream lacks 32 in-vocab tokens")
+    check(any(r["checked"] for r in first_cmp),
+          f"moe: no row's top-2 margin exceeds {WARM_MARGIN_REL_TOL}: "
+          f"{first_cmp}")
+    bad = [r for r in first_cmp if r["checked"]
+           and r["generate"] != r["forward"]]
+    check(not bad, f"moe: generate's first tokens differ from the drop-free "
+                   f"forward's argmax above the margin: {bad}")
+    check([o[0] for o in eng_outs] == eng_first,
+          f"moe: engine first tokens {[o[0] for o in eng_outs]} against "
+          f"batch-1 generate {eng_first}")
+    check("dead" not in stats, f"moe engine died: {stats.get('dead')}")
+    want = {"tcb": cfg.n_layers * (1 + stats["admitted"]),
+            "dec": cfg.n_layers * (MOE_NEW - 1 + stats["decode_steps"])}
+    for kern, w in want.items():
+        check(launches[f"flash_fwd_{kern}"] >= w > 0,
+              f"moe: {kern} launched {launches[f'flash_fwd_{kern}']} times, "
+              f"the path made {w} calls of its shapes")
+    check(launches["flash_fwd_tcb"] == want["tcb"],
+          f"moe: tcb launched {launches['flash_fwd_tcb']} times, one a "
+          f"layer for each of the path's prefills is {want['tcb']}")
+    check(launches["flash_fwd_simt"] == 0, f"moe: simt ran: {launches}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+PHASES = ("kernel", "bwd", "integration", "grad", "serve", "llm", "spec",
+          "moe", "train")
 
 
 def kernel_entry(name, source, replaces, launches, head, part=None,
@@ -1435,6 +1972,12 @@ def main(argv=None) -> int:
     if "serve" in only:
         launches["serve"], launches["serve_kv"] = serve_phase(
             torch, np, tllama, TG, ContinuousEngine, flash)
+    if "llm" in only:
+        launches["llm"] = llm_phase(torch, np, TG, flash)
+    if "spec" in only:
+        launches["spec"] = spec_phase(torch, np, tllama, TG, flash)
+    if "moe" in only:
+        launches["moe"] = moe_phase(torch, np, TG, flash)
     if "train" in only:
         launches["train"] = train_phase(torch, np, tllama, tts, tflops,
                                         flash)

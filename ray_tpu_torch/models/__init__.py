@@ -1,1 +1,2 @@
-"""Models: the Llama family, KV-cache generation and continuous batching."""
+"""Models: the Llama and MoE families, KV-cache and speculative generation,
+and continuous batching."""

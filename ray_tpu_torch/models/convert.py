@@ -1,9 +1,10 @@
 """Carry a JAX parameter pytree into the port.
 
-The JAX package's Llama params (``ray_tpu/models/llama.py:init_params``)
-arrive as numpy arrays, layers stacked on a leading [L] axis; the port
-keeps that structure and orientation, so conversion is a checked copy and
-one cast to the compute dtype.
+The JAX package's Llama and MoE params (``ray_tpu/models/llama.py`` and
+``moe.py``, ``init_params``) arrive as numpy arrays, layers stacked on a
+leading [L] axis; the port keeps that structure and orientation, so
+conversion is a checked copy of each leaf the config's family lists
+(``cfg.param_shapes()``) and one cast to the compute dtype.
 """
 
 from __future__ import annotations
@@ -14,8 +15,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.models.llama import (LlamaConfig, Params, _flat_shapes,
-                                        _unflatten)
+from ray_tpu_torch.models.llama import LlamaConfig, Params, _unflatten
 
 
 def params_from_jax(np_params: dict, cfg: LlamaConfig, *,
@@ -28,7 +28,7 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, *,
     device = resolve_device(device)
     dtype = dtype or cfg.compute_dtype
     flat = {}
-    for name, shape in _flat_shapes(cfg).items():
+    for name, shape in cfg.param_shapes().items():
         node = np_params
         for part in name.split("/"):
             if part not in node:

@@ -8,6 +8,9 @@ slot cache is hundreds of megabytes, and a functional update would copy it
 on every decode step. Callers hand in views (a slot's rows of a shared
 cache) and see the writes.
 
+Both model families decode here: a layer without ``w_gate`` is an MoE
+layer and runs ``moe.ffn_half`` with drop-free routing, as in JAX.
+
 Positions may differ per row (batched decode of requests at different
 lengths): the rope gather, the cache write and the attention offset are
 all per row. A write position past ``max_len - 1`` is clamped to it, as
@@ -20,9 +23,10 @@ from __future__ import annotations
 from typing import Dict, Iterator, Optional, Union
 
 import torch
+import torch.nn.functional as F
 
 from ray_tpu_torch._device import DeviceLike, check_params_on, resolve_device
-from ray_tpu_torch.models import llama
+from ray_tpu_torch.models import llama, moe
 from ray_tpu_torch.ops.norms import rmsnorm
 from ray_tpu_torch.ops.rope import apply_rope, rope_angles
 
@@ -56,7 +60,11 @@ def _block_with_cache(cfg, x, layer, ck, cv, sin, cos, positions, offsets):
     cv[rows, positions] = v
     attn = llama.attend(cfg, q, ck, cv, q_offset=offsets)
     x = x + attn.reshape(b, s, hq * hd) @ layer["wo"]
-    return llama.ffn_half(cfg, x, layer)
+    if "w_gate" in layer:   # dense Llama FFN
+        return llama.ffn_half(cfg, x, layer)
+    # MoE FFN: drop-free inference routing, so rows never compete for
+    # capacity and each row's output is its own
+    return moe.ffn_half(cfg, x, layer, drop_free=True)[0]
 
 
 @torch.inference_mode()
@@ -151,3 +159,86 @@ def generate(params, prompt, cfg, *, max_new_tokens: int,
         return torch.zeros((b, 0), dtype=torch.long,
                            device=resolve_device(device))
     return torch.stack(toks, dim=1)
+
+
+@torch.inference_mode()
+def generate_speculative(params, draft_params, prompt, cfg, draft_cfg, *,
+                         max_new_tokens: int, speculate_k: int = 4,
+                         max_len: Optional[int] = None,
+                         return_stats: bool = False,
+                         device: DeviceLike = None):
+    """Greedy speculative decoding: the DRAFT model proposes
+    ``speculate_k`` tokens a round, one row at a time; the TARGET verifies
+    its current token and the proposals in ONE (k+1)-row forward and
+    emits the longest matching prefix plus its own correction token. The
+    output is exactly the target's greedy continuation (``generate``);
+    the draft only changes how many target forwards it takes.
+
+    Acceptance is lockstep over the batch: ``a = min_b argmin(match ++
+    [False])``. A row that would have accepted more emits those tokens in
+    later rounds. ``a`` is read back to the host once a round (JAX runs
+    the whole loop as one ``while_loop`` program); it sets the next
+    round's positions. Both caches are written in place; entries past a
+    rejection are stale until the next round's write, which starts at the
+    first stale position, overwrites them. After a round that accepts all
+    ``k``, the draft's cache lacks the last proposal's position (it was
+    never fed back to the draft), as in JAX: that lowers acceptance, never
+    exactness.
+
+    ``max_len`` must cover ``prompt + max_new_tokens + speculate_k + 1``:
+    the port clamps each write position to the cache, where JAX's
+    ``dynamic_update_slice`` shifts the block, and the two agree only
+    while a block fits.
+
+    ``return_stats=True`` also returns ``{"rounds", "accept_per_round"}``
+    (tokens emitted per target verify, less the correction token)."""
+    device = resolve_device(device)
+    check_params_on(params, device)
+    check_params_on(draft_params, device)
+    prompt = torch.as_tensor(prompt, dtype=torch.long).to(device)
+    b, s = prompt.shape
+    k = speculate_k
+    total = max_len or (s + max_new_tokens + k + 1)
+    if total < s + max_new_tokens + k + 1:
+        raise ValueError(f"max_len {total} < prompt {s} + new "
+                         f"{max_new_tokens} + k {k} + 1")
+    # invariant from here on: both caches hold KV for positions < pos, and
+    # cur is the (already decided) token AT pos
+    tcache = init_cache(cfg, b, total, device=device)
+    dcache = init_cache(draft_cfg, b, total, device=device)
+    tlogits = _forward_with_cache(params, prompt, cfg, tcache, 0)
+    _forward_with_cache(draft_params, prompt, draft_cfg, dcache, 0)
+    cur = torch.argmax(tlogits[:, -1], dim=-1)
+    out = torch.zeros((b, max_new_tokens + k + 1), dtype=torch.long,
+                      device=device)
+    out[:, 0] = cur
+    lanes = torch.arange(k + 1, device=device)[None, :]
+    no_match = torch.zeros((b, 1), dtype=torch.int32, device=device)
+    n, pos, rounds = 0, s, 0
+    while n < max_new_tokens:
+        tok, drafts = cur, []
+        for i in range(k):
+            logits = _forward_with_cache(draft_params, tok[:, None],
+                                         draft_cfg, dcache, pos + i)
+            tok = torch.argmax(logits[:, -1], dim=-1)
+            drafts.append(tok)
+        drafts = torch.stack(drafts, dim=1)                       # [B, k]
+        block = torch.cat([cur[:, None], drafts], dim=1)
+        logits = _forward_with_cache(params, block, cfg, tcache, pos,
+                                     last_only=False)
+        t = torch.argmax(logits, dim=-1)    # t[:, j] follows pos + j
+        # torch's argmin takes no bool: the first False is the first 0
+        match = (drafts == t[:, :k]).to(torch.int32)
+        a = int(torch.cat([match, no_match], dim=1).argmin(dim=1).min())
+        # draft tokens below a, the target's from a on (position a is the
+        # correction; beyond it is scratch the next round overwrites)
+        emit = torch.where(lanes < a, F.pad(drafts, (0, 1)), t)
+        out[:, n + 1:n + k + 2] = emit
+        cur = emit[:, a]
+        n, pos, rounds = n + a + 1, pos + a + 1, rounds + 1
+    out = out[:, :max_new_tokens]
+    if not return_stats:
+        return out
+    return out, {"rounds": rounds,
+                 "accept_per_round": round(
+                     max(0.0, max_new_tokens / max(1, rounds) - 1.0), 3)}

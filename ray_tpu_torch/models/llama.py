@@ -68,7 +68,29 @@ class LlamaConfig:
         return self.d_model // self.n_heads
 
     def num_params(self) -> int:
-        return sum(math.prod(s) for s in _flat_shapes(self).values())
+        return sum(math.prod(s) for s in self.param_shapes().values())
+
+    def param_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """Every parameter's shape, layer weights as ``layers/<name>``
+        (each model family lists its own leaves)."""
+        d, f, L = self.d_model, self.d_ff, self.n_layers
+        hq, hkv, hd = self.n_heads, self.n_kv_heads, self.head_dim
+        shapes = {
+            "embed": (self.vocab_size, d),
+            "layers/attn_norm": (L, d),
+            "layers/wq": (L, d, hq * hd),
+            "layers/wk": (L, d, hkv * hd),
+            "layers/wv": (L, d, hkv * hd),
+            "layers/wo": (L, hq * hd, d),
+            "layers/mlp_norm": (L, d),
+            "layers/w_gate": (L, d, f),
+            "layers/w_up": (L, d, f),
+            "layers/w_down": (L, f, d),
+            "final_norm": (d,),
+        }
+        if not self.tie_embeddings:
+            shapes["lm_head"] = (d, self.vocab_size)
+        return shapes
 
 
 PRESETS: Dict[str, LlamaConfig] = {
@@ -88,28 +110,6 @@ PRESETS: Dict[str, LlamaConfig] = {
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
               "w_up", "w_down")
-
-
-def _flat_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
-    """Every parameter's shape, layer weights as ``layers/<name>``."""
-    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    shapes = {
-        "embed": (cfg.vocab_size, d),
-        "layers/attn_norm": (L, d),
-        "layers/wq": (L, d, hq * hd),
-        "layers/wk": (L, d, hkv * hd),
-        "layers/wv": (L, d, hkv * hd),
-        "layers/wo": (L, hq * hd, d),
-        "layers/mlp_norm": (L, d),
-        "layers/w_gate": (L, d, f),
-        "layers/w_up": (L, d, f),
-        "layers/w_down": (L, f, d),
-        "final_norm": (d,),
-    }
-    if not cfg.tie_embeddings:
-        shapes["lm_head"] = (d, cfg.vocab_size)
-    return shapes
 
 
 def _fan_in(name: str, shape: Tuple[int, ...]) -> Optional[int]:
@@ -133,12 +133,13 @@ def init_params(cfg: LlamaConfig, *, generator: torch.Generator,
                 device: DeviceLike = None,
                 dtype: Optional[torch.dtype] = None) -> Params:
     """Scaled-normal init from ``generator`` (which must live on
-    ``device``); layer params stacked on a leading [n_layers] axis, stored
-    in ``dtype`` (default: the compute dtype)."""
+    ``device``) of every leaf of ``cfg.param_shapes()``; layer params
+    stacked on a leading [n_layers] axis, stored in ``dtype`` (default:
+    the compute dtype)."""
     device = resolve_device(device)
     dtype = dtype or cfg.compute_dtype
     flat = {}
-    for name, shape in _flat_shapes(cfg).items():
+    for name, shape in cfg.param_shapes().items():
         fan_in = _fan_in(name, shape)
         if fan_in is None:
             flat[name] = torch.ones(shape, dtype=dtype, device=device)

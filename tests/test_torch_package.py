@@ -11,10 +11,12 @@ import torch
 
 from ray_tpu_torch.models import generate as TG
 from ray_tpu_torch.models import llama as tllama
+from ray_tpu_torch.models import moe as tmoe
 from ray_tpu_torch.models.convert import params_from_jax
 from ray_tpu_torch.models.serving import ContinuousBatcher, ContinuousEngine
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import flash as tflash
+from ray_tpu_torch.serve import llm as tllm
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
@@ -42,7 +44,9 @@ def test_port_imports_no_jax_and_no_ray_tpu():
             "ray_tpu_torch/util/flops.py",
             "ray_tpu_torch/util/prefix_hash.py",
             "ray_tpu_torch/util/recorder_core.py",
-            "ray_tpu_torch/util/engine_recorder.py", "chip_smoke.py"} <= names
+            "ray_tpu_torch/util/engine_recorder.py",
+            "ray_tpu_torch/models/moe.py", "ray_tpu_torch/serve/llm.py",
+            "ray_tpu_torch/serve/batching.py", "chip_smoke.py"} <= names
     bad = [(f.relative_to(ROOT), mod) for f in files
            for mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -75,6 +79,16 @@ def test_entry_points_default_to_cuda():
         ContinuousBatcher(params, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ContinuousEngine(params, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TG.generate_speculative(params, params, prompt, cfg, cfg,
+                                max_new_tokens=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmoe.init_params(tmoe.PRESETS["moe-debug"],
+                         generator=torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tllm.ContinuousLLM("debug")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tllm.StaticLLM("debug")
     # and asking for the CPU with params elsewhere is refused, not moved
     with pytest.raises(ValueError, match="params are on"):
         ContinuousBatcher(params, cfg, device="meta")
