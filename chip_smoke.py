@@ -14,7 +14,8 @@ process per source, all at once), then:
    (7b prefill, cached prefill, batched decode with per-row positions at
    7b and at the 1b preset's GQA group, one 7b row over 4,096 keys, the 1b
    train step, 7b's d 128 at s 2048, speculative decode's 5-row verify at
-   7b, the 8x410m MoE preset's decode and prefill) and at small cases (head_dim 16 and
+   7b, the 8x410m MoE preset's decode, prefill and train step) and at
+   small cases (head_dim 16 and
    64, unaligned s, GQA, non-causal, a fully masked offset, a dead decode
    row beside rows that see only the first key chunk, float32, cuts at the
    edges of the 64-row and 64-key tiles, one row below and at the
@@ -27,7 +28,7 @@ process per source, all at once), then:
    TFLOP/s fp32, bytes at 3.35 TB/s);
 3. the two backward kernels (dq, dkv) against their plain versions the
    same way, at the 1b train step's shape (b 4, s 2048, 32/4 heads, d 64),
-   at 7b's d 128 and at small cases cut at the edges of their tiles, with
+   at 8x410m's (16/16 heads of 64), at 7b's d 128 and at small cases cut at the edges of their tiles, with
    torch SDPA's backward as the yardstick at the two training shapes, two
    launches checked to give the same bits, each record with the kernels'
    tiling, and the dkv grid's modelled scheduling tail;
@@ -87,9 +88,32 @@ process per source, all at once), then:
    tokens/s, MFU, peak memory, per-step garbage-collector counts, SM clocks
    before and after, and a profiled step whose forward time must all be
    the tensor-core kernel's;
-11. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
+11. the training fast path (``driver``) at 1b, 22 layers: a seeded numpy
+   token stream of 10 batches [4, 2049] through ``iter_device_batches``
+   (stack 4, prefetch 2) into ``StepDriver(steps_per_launch=4)`` with the
+   step profiler and the train recorder on (2 fused launches and a tail
+   of 2 single steps) and an async ``save_pytree`` of (params,
+   opt_state) after the first launch; the same init and batches through
+   a plain loop of ``make_train_step``; a second run of 4 batches; the
+   checkpoint loaded and the last 6 batches run through a fresh driver.
+   Losses and params equal the plain loop's, and the resumed run's the
+   uninterrupted run's, within ``DRIVER_REL_TOL``; steps, launches and
+   ``compile_count``; each leg's launches exactly 2L tensor-core
+   forwards, L dq and L dkv a step; the recorder's device-done stamps
+   against CUDA events; step ms, tokens/s and MFU against the plain loop,
+   the recorder's phases and waterfall, the feed's verdict, the
+   profiler's summary, the checkpoint's times and rates, peak memory;
+12. MoE training (``moe_train``): the ``8x410m`` preset at full width and
+   24 layers, its 2-layer gradients against plain attention, then a
+   ``StepDriver(steps_per_launch=4)`` over 8 seeded batches [4, 2049]:
+   finite and falling loss, the first near ln 32000 plus the router's aux
+   term, launches exactly 48/24/24 a step; step ms, tokens/s, MFU on
+   active params, a profiled step's idle share and the MoE FFN's and
+   AdamW's shares, peak memory;
+13. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
 
-Each path (serve, serve_kv, llm, spec, moe, train) zeroes every kernel's launch count
+Each path (serve, serve_kv, llm, spec, moe, train, driver, moe_train)
+zeroes every kernel's launch count
 just before it runs and reads them just after; a kernel of the paths that
 was not launched fails the run (the float32 CUDA-core forward is on no
 path: its entry reports its launches, 0, and its cases).
@@ -108,6 +132,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import queue
 import subprocess
 import sys
 import threading
@@ -275,6 +300,9 @@ KERNEL_CASES = {
     # the 8x410m MoE preset: 16/16 heads of 64, engine decode and prefill
     "decode_8x410m_b8": (8, 1, 1024, 16, 16, 64, True, None, "bfloat16"),
     "prefill_8x410m": (1, 512, 512, 16, 16, 64, True, 0, "bfloat16"),
+    # the 8x410m MoE preset's train step: 16/16 heads of 64 at s 2048
+    "train_8x410m": (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 16, 64, True, 0,
+                     "bfloat16"),
 }
 # the launch each path makes most: train and prefill on the tensor-core
 # kernel, decode on the split-KV one; float32 (on neither path) on the
@@ -285,13 +313,13 @@ LIBRARY_CASES = ("prefill_7b", "cached_prefill_7b", "decode_7b_b8",
                  "decode_7b_b1", "decode_1b_gqa_b8", "decode_7b_b1_s4096",
                  "decode_dead_and_first_chunk_d64", "fp32_d128_decode",
                  "train_1b_d64_gqa", "train_7b_d128", "verify_7b_k4",
-                 "decode_8x410m_b8", "prefill_8x410m")
+                 "decode_8x410m_b8", "prefill_8x410m", "train_8x410m")
 # the crossover cases: bf16, d 128, s_k 1024, the rows at the end of the
 # keys, one row below and at fwd_tiling's threshold
 THRESHOLD_SHAPE = (8, 1024, 32, 32, 128)   # b, sk, hq, hkv, d
 # plain versions that hold GBs of fp32 scores: timed eagerly (device-bound
 # there), not captured five times into one CUDA graph
-EAGER_PLAIN_CASES = ("train_1b_d64_gqa", "train_7b_d128")
+EAGER_PLAIN_CASES = ("train_1b_d64_gqa", "train_7b_d128", "train_8x410m")
 
 
 def work(torch, b, sq, sk, hq, hkv, d, causal, offs, dtype):
@@ -466,9 +494,11 @@ BWD_CASES = {
     "train_1b_cut_b1_s512": (1, 512, 512, 32, 4, 64, True, 0, "bfloat16"),
     "fp32_d16": (2, 96, 96, 4, 2, 16, True, 0, "float32"),
     "fp32_d128": (1, 130, 130, 4, 2, 128, True, 0, "float32"),
+    "train_8x410m": (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 16, 64, True, 0,
+                     "bfloat16"),
 }
 BWD_HEADLINE_CASE = "train_1b_d64_gqa"   # the shape the train path gives
-BWD_LIBRARY_CASES = ("train_1b_d64_gqa", "train_7b_d128")
+BWD_LIBRARY_CASES = ("train_1b_d64_gqa", "train_7b_d128", "train_8x410m")
 
 
 def bwd_work(torch, b, sq, sk, hq, hkv, d, causal, offs, dtype):
@@ -1882,8 +1912,696 @@ def moe_phase(torch, np, TG, flash):
     return launches
 
 
+# ------------------------------------------------------------ phases 11-12
+
+# the second run is 2 fused launches, unprofiled: the second is queued
+# while the first runs, so a done stamp that waited for the whole device
+# (a synchronize) would land at the second's end
+DRIVER_K, DRIVER_BATCHES, DRIVER_SECOND = 4, 10, 8
+# the recorder's device-done stamps against the device clock: a launch's
+# done time (host clock, from its run's first launch's start) must match
+# its CUDA event's (device clock) within this share of the event time or
+# this many seconds, whichever is larger: the watcher's wake-up and the
+# interpreter lock's switch interval (5 ms) on the host side. In the
+# profiled run the profiler fences each launch on the step thread, which
+# aligns any watcher's stamps; only the unprofiled second run tests them
+DONE_ALIGN_REL, DONE_ALIGN_ABS_S = 0.02, 0.010
+# device sleeps (cycles, ~0.1 s and ~0.5 s) of the queued-ahead check
+QUEUED_SLEEP_CYCLES = (200_000_000, 1_000_000_000)
+# the driver's losses and params against the plain loop's, and the resumed
+# run's against the uninterrupted one's: the same kernels in the same
+# order, so only a non-deterministic kernel could part them
+DRIVER_REL_TOL = 1e-5
+MOE_TRAIN_PRESET, MOE_TRAIN_BATCHES = "8x410m", 8
+
+
+class LaunchEvents:
+    """Wraps a step function: a CUDA event before and after each call, and
+    the host's clock at the first event (a launch whose device was idle
+    starts on both clocks at once). Launches made through the wrapper
+    are the path's own; nothing here launches a kernel."""
+
+    def __init__(self, torch, fn):
+        self.calls = []
+        self.shadow = None     # a SyncShadow while one is attached
+
+        def run(*args):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            t_host = time.time()
+            ev0.record()
+            out = fn(*args)
+            ev1.record()
+            self.calls.append((t_host, ev0, ev1))
+            if self.shadow is not None:
+                self.shadow.watch(len(self.calls) - 1)
+            return out
+
+        run._signatures = fn._signatures   # what compile_count reads
+        self.run = run
+
+    def device_ms(self):
+        """Each call's first event to its last, on the device clock."""
+        return [a.elapsed_time(b) for _, a, b in self.calls]
+
+
+class SyncShadow:
+    """What a watcher built on ``torch.cuda.synchronize()`` would stamp: a
+    thread that takes each launch as it is queued, synchronizes the device
+    and stamps the host clock. Held beside the recorder's stamps, it shows
+    whether a run can tell the two apart. It launches nothing."""
+
+    def __init__(self, torch):
+        self.stamps = {}
+        self._q = queue.Queue()
+        device = torch.cuda.current_device()
+
+        def loop():
+            torch.cuda.set_device(device)
+            while (i := self._q.get()) is not None:
+                torch.cuda.synchronize()
+                self.stamps[i] = time.time()
+
+        self._thread = threading.Thread(target=loop, daemon=True)
+        self._thread.start()
+
+    def watch(self, i):
+        self._q.put(i)
+
+    def close(self):
+        self._q.put(None)
+        self._thread.join()
+
+
+def rel_diff(torch, got, want):
+    """max |got - want| / max |want| over paired tensors (dicts by name)."""
+    worst = 0.0
+    for name, w in want.items():
+        g = got[name]
+        scale = float(w.float().abs().max()) or 1.0
+        worst = max(worst, float((g.float() - w.float()).abs().max())
+                    / scale)
+    return worst
+
+
+def flat_losses(metrics):
+    """Per-step losses from on_launch metrics: [K] for a fused launch, a
+    0-d tensor for a single step."""
+    return [float(x) for m in metrics for x in m["loss"].reshape(-1)]
+
+
+def wait_recorder(rec, timeout_s=60.0):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline and rec.summary()["in_flight"]:
+        time.sleep(0.005)
+    return rec.summary()
+
+
+def done_alignment(rec_launches, calls, shadow=None, first=0):
+    """Each fused launch's recorder done stamp against its CUDA events
+    (``LaunchEvents.calls[first:]``): host seconds and device seconds from
+    the run's first launch's start; with a ``SyncShadow``, its stamp too."""
+    t_base, ev_base, _ = calls[first]
+    out = []
+    for i, (r, (_, _, ev1)) in enumerate(zip(rec_launches, calls[first:]),
+                                         first):
+        dev_s = ev_base.elapsed_time(ev1) / 1e3
+        margin = max(DONE_ALIGN_ABS_S, DONE_ALIGN_REL * dev_s)
+        a = {"seq": r["seq"], "recorder_done_s": r["t_done"] - t_base,
+             "event_done_s": dev_s, "margin_s": margin,
+             "recorder_device_s": r["phases"].get("dispatch", 0.0)
+             + r["phases"].get("device_compute", 0.0)
+             + r["phases"].get("compile", 0.0),
+             "device_compute_s": r["phases"].get("device_compute", 0.0)}
+        if shadow is not None:
+            sync_s = shadow.stamps[i] - t_base
+            a.update(sync_watcher_done_s=sync_s,
+                     sync_watcher_within_margin=abs(sync_s - dev_s)
+                     <= margin)
+        out.append(a)
+    return out
+
+
+def check_launches(launches, leg, n_layers, steps):
+    want = {"flash_fwd_tcb": 2 * n_layers * steps,
+            "flash_dq": n_layers * steps, "flash_dkv": n_layers * steps,
+            "flash_fwd_dec": 0, "flash_fwd_simt": 0}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{leg}: launches {got}, want {want} ({steps} steps "
+                       f"of {n_layers} layers)")
+
+
+def queued_ahead_alignment(torch):
+    """The recorder's done stamp where the next launch is queued before a
+    watcher could wait: launch 1 a ~0.1 s device sleep, launch 2 a ~0.5 s
+    one queued right behind it, and only then the ``SyncShadow`` handed
+    launch 1. The recorder must stamp launch 1 at its own end; the shadow
+    stamps it at launch 2's end. A 1b launch cannot show this: the host
+    stays less than a launch ahead of the device (the second run's shadow
+    agrees with the events). Launches no kernel of the path."""
+    from ray_tpu_torch.util.train_recorder import TrainRecorder
+
+    rec = TrainRecorder("queued_ahead", enabled=True, n_devices=1)
+    shadow = SyncShadow(torch)
+    try:
+        x = torch.ones(1, device=DEV)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ev[0].record()
+        torch.cuda._sleep(QUEUED_SLEEP_CYCLES[0])
+        ev[1].record()
+        t1 = time.time()
+        seq = rec.record_launch(t_start=t0, data_wait_s=0.0, h2d_s=0.0,
+                                dispatch_s=t1 - t0, t_dispatch_end=t1)
+        rec.watch_outputs(seq, {"loss": x})
+        torch.cuda._sleep(QUEUED_SLEEP_CYCLES[1])
+        ev[2].record()
+        shadow.watch(0)
+        wait_recorder(rec)
+        ev[2].synchronize()
+        [launch] = rec.launches()
+    finally:
+        shadow.close()
+        rec.close()
+    dev_s = ev[0].elapsed_time(ev[1]) / 1e3
+    return {"recorder_done_s": launch["t_done"] - t0, "event_done_s": dev_s,
+            "next_event_done_s": ev[0].elapsed_time(ev[2]) / 1e3,
+            "sync_watcher_done_s": shadow.stamps[0] - t0,
+            "margin_s": max(DONE_ALIGN_ABS_S, DONE_ALIGN_REL * dev_s),
+            "device_compute_s": launch["phases"].get("device_compute",
+                                                     0.0)}
+
+
+def driver_phase(torch, np, tllama, tts, tflops, flash):
+    """The training fast path at 1b (22 layers): a seeded numpy token
+    stream through ``iter_device_batches(stack=4, prefetch_batches=2)``
+    into ``StepDriver(steps_per_launch=4)`` with the step profiler and the
+    train recorder on (2 fused launches, a tail of 2 single steps), an
+    async checkpoint of (params, opt_state) after the first fused launch;
+    the same init and batches through a plain loop of ``make_train_step``;
+    a second run of 4 batches (profiler off); the checkpoint loaded and the
+    last 6 batches run through a fresh driver."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.data.iterator import iter_device_batches
+    from ray_tpu_torch.train.checkpoint import Checkpoint
+    from ray_tpu_torch.train.driver import StepDriver
+    from ray_tpu_torch.util import step_profiler as SP
+
+    cfg = dataclasses.replace(tllama.PRESETS["1b"], attn_impl="flash")
+    L = cfg.n_layers
+    opt = tts.default_optimizer(lr=3e-4, warmup_steps=2, total_steps=100)
+    stream = np.random.default_rng(8).integers(
+        0, cfg.vocab_size, size=(DRIVER_BATCHES + DRIVER_SECOND,
+                                 TRAIN_BATCH, TRAIN_SEQ + 1))
+
+    def host(lo, hi):
+        return ({"tokens": stream[i]} for i in range(lo, hi))
+
+    def init():
+        return tts.init_state(
+            cfg, opt, generator=torch.Generator(device=DEV).manual_seed(0),
+            device=DEV)
+
+    def feed(lo, hi):
+        return iter_device_batches(host(lo, hi), stack=DRIVER_K,
+                                   prefetch_batches=2, device=DEV)
+
+    def driver():
+        drv = StepDriver(cfg, opt, steps_per_launch=DRIVER_K, device=DEV)
+        events = LaunchEvents(torch, drv._multi)
+        drv._multi = events.run
+        return drv, events
+
+    # 1. the plain loop: the reference
+    params, state = init()
+    step = tts.make_train_step(cfg, opt, device=DEV)
+    torch.cuda.synchronize()
+    zero_launches(flash)
+    ref_losses, ref_events = [], []
+    t0 = time.perf_counter()
+    for i in range(DRIVER_BATCHES):
+        params, state, m = step(params, state, {"tokens": stream[i]})
+        ref_losses.append(m["loss"])
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ref_events.append(ev)
+    torch.cuda.synchronize()
+    ref_wall_s = time.perf_counter() - t0
+    ref_launches = read_launches(flash)
+    ref_losses = [float(x) for x in ref_losses]
+    ref_steady_ms = ref_events[1].elapsed_time(ref_events[-1]) \
+        / (DRIVER_BATCHES - 2)
+    ref_params = tts._leaves(params)
+    del state, step, m
+    torch.cuda.empty_cache()
+
+    # 2. the driver, profiled, with an async checkpoint after launch 1
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    disk_free = shutil.disk_usage(ckpt_dir).free
+    try:
+        params, state = init()
+        drv, events = driver()
+        ckpt = Checkpoint.from_directory(ckpt_dir)
+        metrics, save = [], {}
+
+        def on_launch(m):
+            metrics.append(m)
+            if drv.launches == 1:
+                t = time.perf_counter()
+                ckpt.save_pytree(drv.state, blocking=False)
+                save["call_s"] = time.perf_counter() - t
+
+        f = feed(0, DRIVER_BATCHES)
+        SP.reset()
+        SP.enable()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(flash)
+        try:
+            t0 = time.perf_counter()
+            params, state, _ = drv.run(params, state, f, on_launch=on_launch)
+            torch.cuda.synchronize()
+            drv_wall_s = time.perf_counter() - t0
+        finally:
+            SP.disable()
+        drv_launches = read_launches(flash)
+        peak = torch.cuda.max_memory_allocated()
+        drv_losses = flat_losses(metrics)
+        rec_summary = wait_recorder(drv.recorder)
+        rec_launches = drv.recorder.launches()
+        align = done_alignment(rec_launches, events.calls)
+        prof = SP.summary("train")
+        counts = (drv.steps, drv.launches, drv.compile_count())
+        drv_report = drv.report()
+        feed_report, feed_verdict = f.report(), f.verdict()
+        drv_launch_ms = events.device_ms()
+        drv_steady_ms = drv_launch_ms[1] / DRIVER_K
+        final = {k: t.clone() for k, t in tts._leaves(params).items()}
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(drv_losses, ref_losses))
+        param_rel = rel_diff(torch, final, ref_params)
+        del ref_params
+
+        # 3. a second run of 8 batches, profiler off: no new signature;
+        # 2 fused launches back to back, the recorder's done stamps and a
+        # synchronize-based shadow watcher's against CUDA events
+        n_rec, n_calls = len(rec_launches), len(events.calls)
+        shadow = SyncShadow(torch)
+        events.shadow = shadow
+        zero_launches(flash)
+        try:
+            params, state, _ = drv.run(params, state,
+                                       feed(DRIVER_BATCHES,
+                                            DRIVER_BATCHES + DRIVER_SECOND))
+            torch.cuda.synchronize()
+        finally:
+            events.shadow = None
+            shadow.close()
+        second_launches = read_launches(flash)
+        wait_recorder(drv.recorder)
+        second = drv.recorder.launches()[n_rec:]
+        align_second = done_alignment(second, events.calls, shadow, n_calls)
+        second_counts = (drv.steps, drv.launches, drv.compile_count())
+        second_ms = events.device_ms()[-1] / DRIVER_K
+        queued = queued_ahead_alignment(torch)
+        drv.recorder.close()
+        del params, state, drv, events, f
+
+        # 4. the checkpoint: written off the step path; load and resume
+        t = time.perf_counter()
+        ckpt.wait_pending()
+        wait_s = time.perf_counter() - t
+        written = dict(ckpt.last_save)
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        params, state = ckpt.load_pytree(device=DEV)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        loaded_count = state["count"]
+        drv2, _ = driver()
+        metrics = []
+        zero_launches(flash)
+        params, state, _ = drv2.run(params, state, feed(DRIVER_K,
+                                                        DRIVER_BATCHES),
+                                    on_launch=metrics.append)
+        torch.cuda.synchronize()
+        resume_launches = read_launches(flash)
+        resume_losses = flat_losses(metrics)
+        resume_loss_rel = max(abs(a - b) / abs(b) for a, b in
+                              zip(resume_losses, drv_losses[DRIVER_K:]))
+        resume_param_rel = rel_diff(torch, tts._leaves(params), final)
+        resume_counts = (drv2.steps, drv2.launches)
+        drv2.recorder.close()
+        del params, state, drv2, final
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    tokens_per_step, seq = TRAIN_BATCH * TRAIN_SEQ, TRAIN_SEQ
+    step_flops = tokens_per_step * tflops.train_flops_per_token(cfg, seq)
+    speed = lambda ms: {"step_ms": ms,
+                        "tokens_per_s": tokens_per_step * 1e3 / ms,
+                        "mfu": tflops.mfu(step_flops, ms / 1e3)}
+    emit({"phase": "driver", "config": "1b, 22 layers, fp32 params, bf16 "
+                                       "compute, attn flash, remat",
+          "optimizer": dataclasses.asdict(opt),
+          "feed": {"batches": DRIVER_BATCHES, "batch": [TRAIN_BATCH,
+                                                        TRAIN_SEQ + 1],
+                   "stack": DRIVER_K, "prefetch_batches": 2,
+                   "report": feed_report, "verdict": feed_verdict},
+          "losses": {"plain_loop": ref_losses, "driver": drv_losses,
+                     "resumed": resume_losses},
+          "loss_max_rel_diff_vs_plain": loss_rel,
+          "param_max_rel_diff_vs_plain": param_rel,
+          "resumed_loss_max_rel_diff": resume_loss_rel,
+          "resumed_param_max_rel_diff": resume_param_rel,
+          "bitwise_equal": {"driver_vs_plain": loss_rel == param_rel == 0,
+                            "resumed_vs_uninterrupted":
+                                resume_loss_rel == resume_param_rel == 0},
+          "rel_tol": DRIVER_REL_TOL,
+          "steps_launches_compile_count": counts,
+          "second_run": {"steps_launches_compile_count": second_counts,
+                         "launches": second_launches,
+                         "recorder_done_vs_events": align_second,
+                         "sync_watcher_misses_launch_1": not align_second[
+                             0]["sync_watcher_within_margin"]
+                         if align_second else None,
+                         **speed(second_ms)},
+          "resume": {"checkpoint_count": loaded_count,
+                     "steps_launches": resume_counts,
+                     "launches": resume_launches},
+          "plain_loop": {"wall_s": ref_wall_s,
+                         "wall_ms_per_step": ref_wall_s * 1e3
+                         / DRIVER_BATCHES, **speed(ref_steady_ms),
+                         "steady": "device clock, steps 3-10"},
+          "driver_run": {"wall_s": drv_wall_s,
+                         "wall_ms_per_step": drv_wall_s * 1e3
+                         / DRIVER_BATCHES, **speed(drv_steady_ms),
+                         "steady": "device clock, fused launch 2",
+                         "launch_device_ms": drv_launch_ms},
+          "mfu_peak": "989e12 bf16 dense (H100 SXM)",
+          "driver_report": drv_report,
+          "recorder_summary": rec_summary,
+          "recorder_done_vs_events": align,
+          "recorder_done_vs_events_note": "profiled: the profiler fences "
+                                          "each launch, which aligns any "
+                                          "watcher; the second run's test",
+          "queued_ahead": queued,
+          "step_profiler_summary": prof,
+          "checkpoint": {"save_call_s_on_step_path": save.get("call_s"),
+                         "fence_wait_s": wait_s,
+                         "writer_s": written.get("write_s"),
+                         "bytes": written.get("bytes"),
+                         "writer_gb_per_s": written["bytes"]
+                         / written["write_s"] / 1e9 if written else None,
+                         "load_s": load_s,
+                         "load_gb_per_s": written["bytes"] / load_s / 1e9
+                         if written else None,
+                         "snapshot": "device clone on the compute stream",
+                         "disk_free_bytes": disk_free},
+          "peak_mem_bytes": peak,
+          "launches": {"plain_loop": ref_launches, "driver": drv_launches,
+                       "second_run": second_launches,
+                       "resume": resume_launches}})
+    finite = all(np.isfinite(x) for x in ref_losses + drv_losses
+                 + resume_losses)
+    check(finite, f"driver: non-finite loss {drv_losses} {resume_losses}")
+    check(abs(ref_losses[0] - np.log(cfg.vocab_size)) <= FIRST_LOSS_MARGIN,
+          f"driver: first loss {ref_losses[0]} not within "
+          f"{FIRST_LOSS_MARGIN} of ln {cfg.vocab_size}")
+    check(len(drv_losses) == DRIVER_BATCHES and loss_rel <= DRIVER_REL_TOL
+          and param_rel <= DRIVER_REL_TOL,
+          f"driver vs plain loop: losses {loss_rel}, params {param_rel} "
+          f"(tol {DRIVER_REL_TOL})")
+    check(len(resume_losses) == DRIVER_BATCHES - DRIVER_K
+          and loaded_count == DRIVER_K
+          and resume_loss_rel <= DRIVER_REL_TOL
+          and resume_param_rel <= DRIVER_REL_TOL,
+          f"resumed vs uninterrupted: count {loaded_count}, losses "
+          f"{resume_loss_rel}, params {resume_param_rel}")
+    check(counts == (DRIVER_BATCHES, 4, 1),
+          f"driver (steps, launches, compile_count) {counts}, want (10, 4, 1)")
+    check(second_counts == (DRIVER_BATCHES + DRIVER_SECOND,
+                            4 + DRIVER_SECOND // DRIVER_K, 1),
+          f"second run (steps, launches, compile_count) {second_counts}")
+    check(resume_counts == (DRIVER_BATCHES - DRIVER_K, 3),
+          f"resumed driver (steps, launches) {resume_counts}")
+    for leg, got, steps in (("plain loop", ref_launches, DRIVER_BATCHES),
+                            ("driver", drv_launches, DRIVER_BATCHES),
+                            ("second run", second_launches, DRIVER_SECOND),
+                            ("resume", resume_launches,
+                             DRIVER_BATCHES - DRIVER_K)):
+        check_launches(got, f"driver {leg}", L, steps)
+    fused = rec_summary["launches_total"]
+    check(fused == 2 and len(rec_launches) == 2
+          and len(second) == DRIVER_SECOND // DRIVER_K,
+          f"recorder: {fused} then {len(second)} fused launches recorded, "
+          f"want 2 then {DRIVER_SECOND // DRIVER_K}")
+    for a in align + align_second:
+        check(a["device_compute_s"] > 0 and abs(
+            a["recorder_done_s"] - a["event_done_s"]) <= a["margin_s"],
+              f"recorder done stamp vs CUDA events: {a}")
+    check(queued["device_compute_s"] > 0
+          and abs(queued["recorder_done_s"] - queued["event_done_s"])
+          <= queued["margin_s"]
+          and abs(queued["sync_watcher_done_s"] - queued["event_done_s"])
+          > queued["margin_s"],
+          f"queued ahead: the recorder must stamp launch 1 at its own end "
+          f"and a synchronize-based watcher must not: {queued}")
+    check(prof.get("launch_source") == "recorder" and prof["launches"] == 2,
+          f"step profiler's train launches do not join the recorder's: "
+          f"{prof}")
+    return drv_launches
+
+
+def moe_train_phase(torch, np, tts, tflops, flash):
+    """MoE training at full width and depth: ``8x410m`` (24 layers, 8
+    experts, top 2), fp32 params, bf16 compute, flash, remat, the driver
+    phase's optimizer; first the 2-layer gradients against plain
+    attention, then ``StepDriver(steps_per_launch=4)`` over 8 seeded
+    batches [4, 2049] through the device feed, then, outside the count, one
+    profiled step (device busy, the MoE FFN's and AdamW's shares).
+
+    The gradient check routes the flash run's tokens to the experts the
+    plain run chose (``moe._route`` recorded, then replayed call by call):
+    a bf16 rounding of attention's output flips a near-tied top-2 choice
+    for some tokens, and a flipped token changes its own hidden state, and
+    the lm_head and embedding rows it alone touches, by O(1). The free
+    run's differences and flips are reported beside it, and a free run in
+    fp32 compute, where attention's rounding flips few or no choices."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ray_tpu_torch.data.iterator import iter_device_batches
+    from ray_tpu_torch.models import moe as tmoe
+    from ray_tpu_torch.train.driver import StepDriver
+
+    cfg = dataclasses.replace(tmoe.PRESETS[MOE_TRAIN_PRESET],
+                              attn_impl="flash")
+    L = cfg.n_layers
+    opt = tts.default_optimizer(lr=3e-4, warmup_steps=2, total_steps=100)
+
+    # the 2-layer gradient check, flash against plain attention: free, and
+    # with the flash run's expert choices pinned to the plain run's
+    base = dataclasses.replace(cfg, n_layers=2)
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    params = tmoe.init_params(base, generator=gen, device=DEV,
+                              dtype=torch.float32)
+    tokens = torch.randint(0, base.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           device=DEV, generator=gen)
+    leaves = tts._leaves(params)
+    route = tmoe._route
+    choices = {}
+
+    def grads_of(impl, record=None, replay=None, dtype=None):
+        calls = []
+
+        def routed(cfg_, toks, layer):
+            probs, idx = route(cfg_, toks, layer)
+            if replay is not None:
+                idx = replay[len(calls)]
+            calls.append(idx)
+            return probs, idx
+
+        tmoe._route = routed
+        for t in leaves.values():
+            t.requires_grad_(True)
+        try:
+            loss = tmoe.lm_loss(params, {"tokens": tokens},
+                                dataclasses.replace(
+                                    base, attn_impl=impl, compute_dtype=dtype
+                                    or base.compute_dtype))
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        finally:
+            tmoe._route = route
+            for t in leaves.values():
+                t.requires_grad_(False)
+        if record is not None:
+            choices[record] = calls
+        return float(loss), dict(zip(leaves, grads))
+
+    # the free run again in fp32 compute, where attention's rounding is too
+    # small to flip a choice: what the bf16 free gap owes to re-routing
+    f32 = torch.float32
+    runs = {"plain": grads_of("xla", record="plain"),
+            "flash_free": grads_of("flash", record="flash"),
+            "flash_pinned": grads_of("flash", replay=choices["plain"]),
+            "plain_fp32": grads_of("xla", record="plain_fp32", dtype=f32),
+            "flash_free_fp32": grads_of("flash", record="flash_fp32",
+                                        dtype=f32)}
+    against = {"flash_free": "plain", "flash_pinned": "plain",
+               "flash_free_fp32": "plain_fp32"}
+    grad_rel = {run: {name: float((runs[run][1][name] - r).abs().max()
+                                  / r.abs().max())
+                      for name, r in runs[ref][1].items()}
+                for run, ref in against.items()}
+    # token selections that differ, per routing call (forward and remat
+    # recompute of each layer) of each free run
+    flips = {run: [int((a != b).any(-1).sum()) for a, b in
+                   zip(choices[run], choices[ref])]
+             for run, ref in (("flash", "plain"),
+                              ("flash_fp32", "plain_fp32"))}
+    grad_finite = all(bool(torch.isfinite(g).all())
+                      for _, gs in runs.values() for g in gs.values())
+    grad_loss = {run: loss for run, (loss, _) in runs.items()}
+    del params, leaves, runs, choices
+    torch.cuda.empty_cache()
+
+    # the driver at full depth
+    params, state = tts.init_state(
+        cfg, opt, generator=torch.Generator(device=DEV).manual_seed(0),
+        device=DEV)
+    stream = np.random.default_rng(9).integers(
+        0, cfg.vocab_size, size=(MOE_TRAIN_BATCHES, TRAIN_BATCH,
+                                 TRAIN_SEQ + 1))
+    drv = StepDriver(cfg, opt, steps_per_launch=DRIVER_K, device=DEV)
+    events = LaunchEvents(torch, drv._multi)
+    drv._multi = events.run
+    f = iter_device_batches(({"tokens": b} for b in stream), stack=DRIVER_K,
+                            prefetch_batches=2, device=DEV)
+    metrics = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(flash)
+    t0 = time.perf_counter()
+    params, state, _ = drv.run(params, state, f, on_launch=metrics.append)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches(flash)
+    peak = torch.cuda.max_memory_allocated()
+    losses = flat_losses(metrics)
+    counts = (drv.steps, drv.launches, drv.compile_count())
+    launch_ms = events.device_ms()
+    step_ms = launch_ms[-1] / DRIVER_K
+    rec_summary = wait_recorder(drv.recorder)
+    drv.recorder.close()
+
+    # one profiled step, outside the count
+    step = tts.make_train_step(cfg, opt, device=DEV)
+    moe_ffn, update = tmoe._moe_ffn, tts.AdamW.update
+
+    def traced_ffn(*a, **kw):
+        with record_function("moe_ffn"):
+            return moe_ffn(*a, **kw)
+
+    def traced_update(self, *a, **kw):
+        with record_function("adamw"):
+            return update(self, *a, **kw)
+
+    tmoe._moe_ffn, tts.AdamW.update = traced_ffn, traced_update
+    try:
+        step(params, state, {"tokens": stream[0]})
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ev[0].record()
+            step(params, state, {"tokens": stream[1]})
+            ev[1].record()
+            torch.cuda.synchronize()
+        profiled_ms = ev[0].elapsed_time(ev[1])
+    finally:
+        tmoe._moe_ffn, tts.AdamW.update = moe_ffn, update
+    cuda = torch.autograd.DeviceType.CUDA
+    per_kernel = {e.key: e.self_device_time_total / 1e3
+                  for e in prof.key_averages()
+                  if e.device_type == cuda and e.self_device_time_total > 0
+                  and e.key not in ("moe_ffn", "adamw")}
+    busy = sum(per_kernel.values())
+    ranges = {name: sum(e.device_time_total / 1e3 for e in prof.key_averages()
+                        if e.key == name and e.device_type != cuda)
+              for name in ("moe_ffn", "adamw")}
+    flash_ms = {kind: sum(t for n, t in per_kernel.items() if kind in n)
+                for kind in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                             "flash_bwd_dkv_kernel")}
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
+    del params, state, drv, events, f, step
+    torch.cuda.empty_cache()
+
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    step_flops = tokens_per_step * tflops.train_flops_per_token(
+        cfg, TRAIN_SEQ)
+    # at uniform routing the aux loss E * sum_e(f_e * p_e) is 1 a layer
+    want_first = float(np.log(cfg.vocab_size)) + cfg.router_aux_coef
+    emit({"phase": "moe_train",
+          "config": f"{MOE_TRAIN_PRESET}, {L} layers, {cfg.n_experts} "
+                    f"experts top {cfg.top_k}, fp32 params, bf16 compute, "
+                    f"attn flash, remat",
+          "params": cfg.num_params(), "active_params": cfg.active_params(),
+          "optimizer": dataclasses.asdict(opt),
+          "grad_check": {"config": "8x410m, n_layers=2, fp32 params, "
+                                   "bf16 compute (the _fp32 runs: fp32)",
+                         "loss": grad_loss, "rel_diff_by_leaf": grad_rel,
+                         "routing_flips_by_call": flips,
+                         "tokens_per_call": TRAIN_BATCH * TRAIN_SEQ,
+                         "checked": "flash_pinned",
+                         "rel_tol": GRAD_REL_TOL, "finite": grad_finite},
+          "batches": MOE_TRAIN_BATCHES, "batch": [TRAIN_BATCH,
+                                                  TRAIN_SEQ + 1],
+          "losses": losses, "first_loss_expected": want_first,
+          "steps_launches_compile_count": counts,
+          "wall_s": wall_s, "launch_device_ms": launch_ms,
+          "step_ms": step_ms, "steady": "device clock, last fused launch",
+          "tokens_per_s": tokens_per_step * 1e3 / step_ms,
+          "step_flops_active": step_flops,
+          "mfu_active": tflops.mfu(step_flops, step_ms / 1e3),
+          "mfu_peak": "989e12 bf16 dense (H100 SXM)",
+          "recorder_summary": rec_summary,
+          "profiled_step": {
+              "device_busy_ms": busy if busy else "not measured",
+              "device_clock_ms": profiled_ms,
+              "device_idle_share": 1 - busy / profiled_ms if busy
+              else "not measured",
+              "moe_ffn_ms": ranges["moe_ffn"] or "not measured",
+              "moe_ffn_share_of_busy": ranges["moe_ffn"] / busy
+              if busy and ranges["moe_ffn"] else "not measured",
+              "adamw_ms": ranges["adamw"] or "not measured",
+              "adamw_share_of_busy": ranges["adamw"] / busy
+              if busy and ranges["adamw"] else "not measured",
+              "flash_ms": flash_ms,
+              "top_kernels_ms": [[n[:80], t] for n, t in top]},
+          "peak_mem_bytes": peak, "launches": launches})
+    pinned = max(grad_rel["flash_pinned"].values())
+    check(grad_finite and pinned <= GRAD_REL_TOL,
+          f"2-layer 8x410m grads, routing pinned: flash vs plain rel diff "
+          f"{pinned} > {GRAD_REL_TOL}")
+    check(len(losses) == MOE_TRAIN_BATCHES and all(np.isfinite(losses)),
+          f"moe_train: losses {losses}")
+    check(abs(losses[0] - want_first) <= FIRST_LOSS_MARGIN,
+          f"moe_train: first loss {losses[0]} not within "
+          f"{FIRST_LOSS_MARGIN} of ln {cfg.vocab_size} + "
+          f"{cfg.router_aux_coef}")
+    check(losses[-1] < losses[0], f"moe_train: loss did not fall: {losses}")
+    check(counts == (MOE_TRAIN_BATCHES, 2, 1),
+          f"moe_train (steps, launches, compile_count) {counts}")
+    check_launches(launches, "moe_train", L, MOE_TRAIN_BATCHES)
+    return launches
+
+
 PHASES = ("kernel", "bwd", "integration", "grad", "serve", "llm", "spec",
-          "moe", "train")
+          "moe", "train", "driver", "moe_train")
 
 
 def kernel_entry(name, source, replaces, launches, head, part=None,
@@ -1981,6 +2699,12 @@ def main(argv=None) -> int:
     if "train" in only:
         launches["train"] = train_phase(torch, np, tllama, tts, tflops,
                                         flash)
+    if "driver" in only:
+        launches["driver"] = driver_phase(torch, np, tllama, tts, tflops,
+                                          flash)
+    if "moe_train" in only:
+        launches["moe_train"] = moe_train_phase(torch, np, tts, tflops,
+                                                flash)
     if args.only is not None:
         print(json.dumps({"partial_run": sorted(only)}), flush=True)
         return 0

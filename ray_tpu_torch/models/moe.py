@@ -96,6 +96,19 @@ def init_params(cfg: MoEConfig, *, generator: torch.Generator,
                              dtype=dtype)
 
 
+def _route(cfg: MoEConfig, tokens: torch.Tensor,
+           layer: Dict[str, torch.Tensor]
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [G, d] -> (router probs [G, E] in fp32, each token's top-k
+    experts [G, K]). A stable descending sort: equal probs keep the lower
+    expert first, as ``lax.top_k``."""
+    logits = tokens.float() @ layer["router"].float()             # [G, E]
+    probs = torch.softmax(logits, dim=-1)
+    topk_idx = torch.sort(probs, dim=-1, descending=True,
+                          stable=True).indices[:, :cfg.top_k]
+    return probs, topk_idx
+
+
 def _moe_ffn(cfg: MoEConfig, h: torch.Tensor,
              layer: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -108,11 +121,7 @@ def _moe_ffn(cfg: MoEConfig, h: torch.Tensor,
     cdt = h.dtype
     tokens = h.reshape(G, d)
 
-    logits = tokens.float() @ layer["router"].float()             # [G, E]
-    probs = torch.softmax(logits, dim=-1)
-    # stable descending sort: equal probs keep the lower expert first
-    topk_idx = torch.sort(probs, dim=-1, descending=True,
-                          stable=True).indices[:, :K]             # [G, K]
+    probs, topk_idx = _route(cfg, tokens, layer)
     topk_probs = probs.gather(1, topk_idx)
     topk_probs = topk_probs / (topk_probs.sum(-1, keepdim=True) + 1e-9)
 

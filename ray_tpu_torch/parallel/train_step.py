@@ -4,19 +4,23 @@
 adamw(warmup_cosine_decay_schedule))`` written out (JAX leaves it to
 optax, not to a kernel). ``make_train_step`` returns ``(params, opt_state,
 batch) -> (params, opt_state, {"loss", "grad_norm"})``: the loss and its
-gradients through the Llama forward (``attn_impl="flash"`` runs the CUDA
-flash kernels forward and backward), then the optimizer.
+gradients through the config's family (``model_family``: the Llama
+decoder or the MoE; ``attn_impl="flash"`` runs the CUDA flash kernels
+forward and backward), then the optimizer. Both step functions run under
+the step profiler's hook (``_instrumented``), one predicate a step while
+profiling is off.
 
 Unlike JAX, which donates the buffers to a pure function, the step updates
 params and optimizer state in place and returns the same objects: at the
 1b preset that saves a 4.4 GB copy of the fp32 params (and 8.8 GB of
-moments) a step. The mesh, ``Plan``, 1f1b and the step profiler are not
-ported yet (ROADMAP.md, Queue 1).
+moments) a step. The mesh, ``Plan``, ``shard_batch``, ``auto_mesh`` and
+1f1b are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Callable, Dict, Optional, Tuple
 
@@ -25,6 +29,7 @@ import torch
 
 from ray_tpu_torch._device import DeviceLike, check_params_on, resolve_device
 from ray_tpu_torch.models import llama
+from ray_tpu_torch.util import step_profiler
 
 Batch = Dict[str, torch.Tensor]
 B1, B2, EPS = 0.9, 0.95, 1e-8    # JAX's default_optimizer passes these
@@ -109,14 +114,33 @@ def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
                  total_steps=total_steps, grad_clip=grad_clip)
 
 
+def model_family(cfg):
+    """The module implementing ``cfg``'s family (``init_params`` /
+    ``lm_loss``): the MoE family for a ``MoEConfig``, the Llama decoder
+    otherwise."""
+    from ray_tpu_torch.models import moe
+
+    return moe if isinstance(cfg, moe.MoEConfig) else llama
+
+
+def supports_multi_step(cfg) -> bool:
+    """Whether ``make_multi_step`` can fuse K steps for this config. JAX's
+    1f1b pipeline schedule cannot; the port's configs have no pipeline
+    fields (1f1b is not ported), so this is always true here and the
+    driver's degrade logic reads like JAX's."""
+    return not (getattr(cfg, "pipeline_axis", None) is not None
+                and getattr(cfg, "pipeline_schedule", "gpipe") == "1f1b")
+
+
 def init_state(cfg: llama.LlamaConfig, optimizer: AdamW, *,
                generator: torch.Generator, device: DeviceLike = None
                ) -> Tuple[llama.Params, dict]:
-    """fp32 master params from ``generator`` (which must live on
-    ``device``) and the optimizer's zero state; the one-device stand-in for
-    JAX's ``init_sharded_state``."""
-    params = llama.init_params(cfg, generator=generator, device=device,
-                               dtype=torch.float32)
+    """fp32 master params of ``cfg``'s family from ``generator`` (which
+    must live on ``device``) and the optimizer's zero state; the
+    one-device stand-in for JAX's ``init_sharded_state``."""
+    params = model_family(cfg).init_params(cfg, generator=generator,
+                                           device=device,
+                                           dtype=torch.float32)
     return params, optimizer.init(params)
 
 
@@ -131,9 +155,16 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW,
     "grad_norm"}), params and state updated in place (the same objects come
     back). ``batch`` holds tokens [B, S+1] (numpy or tensors; moved to the
     device). ``grad_norm`` is the global norm before clipping. The metrics
-    are 0-d tensors on the device: reading them waits for the step."""
-    device = resolve_device(device)
-    loss_fn = loss_fn or llama.lm_loss
+    are 0-d tensors on the device: reading them waits for the step.
+    ``loss_fn`` defaults to the family's ``lm_loss``."""
+    step = _step_fn(cfg, optimizer, loss_fn, resolve_device(device))
+    return _instrumented(step, cfg)
+
+
+def _step_fn(cfg, optimizer: AdamW, loss_fn: Optional[Callable],
+             device: torch.device) -> Callable:
+    """The uninstrumented single step of ``make_train_step``."""
+    loss_fn = loss_fn or model_family(cfg).lm_loss
 
     def step(params, opt_state, batch):
         check_params_on(params, device)
@@ -161,8 +192,13 @@ def make_multi_step(cfg: llama.LlamaConfig, optimizer: AdamW, n_steps: int,
     """K train steps over a stacked batch: (params, opt_state, batches) ->
     (params, opt_state, metrics) with each leaf of ``batches`` [K, ...] and
     each metric [K]. JAX fuses the K steps into one ``lax.scan`` program;
-    here they are a loop of ``make_train_step``'s step."""
-    step = make_train_step(cfg, optimizer, loss_fn, device)
+    here they are a loop of ``make_train_step``'s step, with no host read
+    between them."""
+    if not supports_multi_step(cfg):
+        raise NotImplementedError("multi-step over the 1f1b schedule is "
+                                  "unsupported; use single-step "
+                                  "(StepDriver degrades automatically)")
+    step = _step_fn(cfg, optimizer, loss_fn, resolve_device(device))
 
     def steps(params, opt_state, batches):
         for k, v in batches.items():
@@ -177,7 +213,7 @@ def make_multi_step(cfg: llama.LlamaConfig, optimizer: AdamW, n_steps: int,
         return params, opt_state, {k: torch.stack([m[k] for m in per_step])
                                    for k in per_step[0]}
 
-    return steps
+    return _instrumented(steps, cfg, stacked=True, steps_per_launch=n_steps)
 
 
 def _batch_tokens(batch, stacked: bool = False) -> Tuple[int, int]:
@@ -198,3 +234,46 @@ def _batch_tokens(batch, stacked: bool = False) -> Tuple[int, int]:
         return k * b * max(1, s1 - 1), max(1, s1 - 1)
     b, s1 = shape[:2]
     return b * max(1, s1 - 1), max(1, s1 - 1)
+
+
+def _signature(batch) -> Tuple:
+    """Shapes and dtypes of a batch's leaves, by key: what a new jit-cache
+    entry would be keyed on in JAX."""
+    return tuple(sorted((k, tuple(v.shape), str(v.dtype))
+                        for k, v in batch.items()))
+
+
+_PROGRAM_IDS = itertools.count()
+
+
+def _instrumented(fn: Callable, cfg, stacked: bool = False,
+                  steps_per_launch: int = 1) -> Callable:
+    """The (params, opt_state, batch) entry point every trainer calls: the
+    step profiler's per-step record (wall / compile / dispatch / device
+    sync split, analytic MFU) around ``fn``. Disabled profiling costs one
+    predicate per step. The profiler key is a fresh counter value per
+    built step, never ``id(fn)``, which CPython reuses after GC and would
+    book a new program's first call as dispatch.
+
+    ``run._signatures`` collects the batch signatures (leaf shapes and
+    dtypes) the program has run: eager PyTorch compiles nothing, and their
+    count stands in for the size of JAX's jit cache (1 once warm for a
+    steady feed)."""
+    program_id = next(_PROGRAM_IDS)
+    signatures = set()
+
+    def run(params, opt_state, batch):
+        signatures.add(_signature(batch))
+        if not step_profiler.is_enabled():
+            return fn(params, opt_state, batch)
+        from ray_tpu_torch.util import flops as F
+
+        tokens, seq = _batch_tokens(batch, stacked)
+        return step_profiler.profiled_call(
+            "train", fn, (params, opt_state, batch),
+            key=("train", program_id), tokens=tokens,
+            steps=steps_per_launch,
+            flops=tokens * F.train_flops_per_token(cfg, seq))
+
+    run._signatures = signatures
+    return run

@@ -3,7 +3,8 @@
 The port's own copy of ``ray_tpu/util/flops.py``'s training formulas (the
 standard estimates: a matmul touching N parameters costs 2N FLOPs a token
 forward and 4N backward, so a train step is 6N a token plus the attention
-term 6 * L * S * hq * hd). The peak is the H100 SXM's dense bf16 tensor
+term 6 * L * S * hq * hd; a MoE config counts its ACTIVE parameters, the
+top-k experts a token runs through, not all of them). The peak is the H100 SXM's dense bf16 tensor
 rate from NVIDIA's data sheet, at the full 700 W power limit.
 """
 
@@ -14,10 +15,17 @@ from typing import Optional
 H100_BF16_PEAK_FLOPS = 989e12
 
 
+def _flops_params(cfg) -> int:
+    """The FLOPs-relevant parameter count: active params for MoE (top-k
+    experts per token), total params otherwise."""
+    active = getattr(cfg, "active_params", None)
+    return active() if callable(active) else cfg.num_params()
+
+
 def train_flops_per_token(cfg, seq: int) -> float:
     """Fwd+bwd FLOPs per trained token: 6N + the attention term."""
     attn = 6 * cfg.n_layers * seq * cfg.n_heads * cfg.head_dim
-    return 6.0 * cfg.num_params() + attn
+    return 6.0 * _flops_params(cfg) + attn
 
 
 def train_step_flops(cfg, batch: int, seq: int) -> float:

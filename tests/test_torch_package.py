@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from ray_tpu_torch.data.iterator import iter_device_batches
 from ray_tpu_torch.models import generate as TG
 from ray_tpu_torch.models import llama as tllama
 from ray_tpu_torch.models import moe as tmoe
@@ -16,7 +17,10 @@ from ray_tpu_torch.models.convert import params_from_jax
 from ray_tpu_torch.models.serving import ContinuousBatcher, ContinuousEngine
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import flash as tflash
+from ray_tpu_torch.parallel import train_step as tts
 from ray_tpu_torch.serve import llm as tllm
+from ray_tpu_torch.train.checkpoint import Checkpoint
+from ray_tpu_torch.train.driver import StepDriver
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
@@ -46,7 +50,15 @@ def test_port_imports_no_jax_and_no_ray_tpu():
             "ray_tpu_torch/util/recorder_core.py",
             "ray_tpu_torch/util/engine_recorder.py",
             "ray_tpu_torch/models/moe.py", "ray_tpu_torch/serve/llm.py",
-            "ray_tpu_torch/serve/batching.py", "chip_smoke.py"} <= names
+            "ray_tpu_torch/serve/batching.py",
+            "ray_tpu_torch/train/__init__.py",
+            "ray_tpu_torch/train/driver.py",
+            "ray_tpu_torch/train/checkpoint.py",
+            "ray_tpu_torch/data/__init__.py",
+            "ray_tpu_torch/data/iterator.py",
+            "ray_tpu_torch/util/step_profiler.py",
+            "ray_tpu_torch/util/train_recorder.py",
+            "ray_tpu_torch/util/memory.py", "chip_smoke.py"} <= names
     bad = [(f.relative_to(ROOT), mod) for f in files
            for mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -89,6 +101,13 @@ def test_entry_points_default_to_cuda():
         tllm.ContinuousLLM("debug")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tllm.StaticLLM("debug")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StepDriver(cfg, tts.default_optimizer())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        iter_device_batches(iter([]))
+    ckpt = Checkpoint.from_dict({})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ckpt.load_pytree()
     # and asking for the CPU with params elsewhere is refused, not moved
     with pytest.raises(ValueError, match="params are on"):
         ContinuousBatcher(params, cfg, device="meta")

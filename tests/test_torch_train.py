@@ -17,9 +17,11 @@ import pytest
 import torch
 
 from ray_tpu.models import llama as jllama
+from ray_tpu.models import moe as jmoe
 from ray_tpu.parallel import train_step as jts
 from ray_tpu.util import flops as jflops
 from ray_tpu_torch.models import llama as tllama
+from ray_tpu_torch.models import moe as tmoe
 from ray_tpu_torch.models.convert import params_from_jax, params_to_numpy
 from ray_tpu_torch.parallel import train_step as tts
 from ray_tpu_torch.util import flops as tflops
@@ -226,13 +228,22 @@ def test_batch_tokens_match_jax(stacked):
             jts._batch_tokens(batch, stacked)
 
 
-def test_train_flops_match_jax():
-    jcfg, tcfg = jllama.PRESETS["1b"], tllama.PRESETS["1b"]
+@pytest.mark.parametrize("family,preset", [
+    *(("llama", p) for p in jllama.PRESETS),
+    *(("moe", p) for p in jmoe.PRESETS)])
+def test_train_flops_match_jax(family, preset):
+    """Every preset of both families: a MoE config counts its active
+    params (8x410m: 3.79 GFLOP a token at seq 2048, not 11.27)."""
+    jfam, tfam = {"llama": (jllama, tllama), "moe": (jmoe, tmoe)}[family]
+    jcfg, tcfg = jfam.PRESETS[preset], tfam.PRESETS[preset]
     assert tcfg.num_params() == jcfg.num_params()
     assert tflops.train_flops_per_token(tcfg, 2048) == \
         jflops.train_flops_per_token(jcfg, 2048)
     assert tflops.train_step_flops(tcfg, 4, 2048) == \
         jflops.train_step_flops(jcfg, 4, 2048)
+    if preset == "8x410m":
+        assert round(tflops.train_flops_per_token(tcfg, 2048) / 1e9, 2) \
+            == 3.79
     step_flops = tflops.train_step_flops(tcfg, 4, 2048)
     assert tflops.mfu(step_flops, 1.0) == step_flops / 989e12
     assert tflops.mfu(step_flops, 0.0) == 0.0
