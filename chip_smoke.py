@@ -14,7 +14,8 @@ process per source, all at once), then:
    (7b prefill, cached prefill, batched decode with per-row positions at
    7b and at the 1b preset's GQA group, one 7b row over 4,096 keys, the 1b
    train step, 7b's d 128 at s 2048, speculative decode's 5-row verify at
-   7b, the 8x410m MoE preset's decode, prefill and train step) and at
+   7b, the 8x410m MoE preset's decode, prefill and train step, the RLHF
+   update's 255-row forward at 1b) and at
    small cases (head_dim 16 and
    64, unaligned s, GQA, non-causal, a fully masked offset, a dead decode
    row beside rows that see only the first key chunk, float32, cuts at the
@@ -28,8 +29,9 @@ process per source, all at once), then:
    TFLOP/s fp32, bytes at 3.35 TB/s);
 3. the two backward kernels (dq, dkv) against their plain versions the
    same way, at the 1b train step's shape (b 4, s 2048, 32/4 heads, d 64),
-   at 8x410m's (16/16 heads of 64), at 7b's d 128 and at small cases cut at the edges of their tiles, with
-   torch SDPA's backward as the yardstick at the two training shapes, two
+   at 8x410m's (16/16 heads of 64), at the RLHF update's (b 8, s 255,
+   32/4 heads of 64), at 7b's d 128 and at small cases cut at the edges of their tiles, with
+   torch SDPA's backward as the yardstick at the training shapes, two
    launches checked to give the same bits, each record with the kernels'
    tiling, and the dkv grid's modelled scheduling tail;
 4. the 7b config cut to 2 layers: logits through the kernel
@@ -110,9 +112,31 @@ process per source, all at once), then:
    term, launches exactly 48/24/24 a step; step ms, tokens/s, MFU on
    active params, a profiled step's idle share and the MoE FFN's and
    AdamW's shares, peak memory;
-13. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
+13. RLHF (``rlhf``): ``RLHFPipeline`` on the 1b preset at full width and
+   22 layers (fp32 masters, bf16 compute, flash, remat; the generator's
+   engine in bf16, 8 slots, stride 8), 8 prompts of 128 tokens, 128 new,
+   2 epochs, 3 iterations; iteration 1's KL exactly 0 and iteration 2's
+   not, the reference's params bit-unchanged, every sync's version
+   decoded by the next generate (staleness 0), the generator's greedy
+   continuation of a prompt after the last sync equal to batch-1
+   ``generate`` on the learner's params cast to bf16 for 8 tokens, finite
+   losses, and each role phase's launches exactly as its work gives
+   (``rlhf_expected_launches``); per-phase seconds, tok/s, update
+   tokens/s and MFU, sync bytes and seconds, the recorder's bubble and
+   coverage, peak memory;
+14. the fused PPO iteration (``anakin``): ``AnakinConfig()`` (64 envs x
+   32 steps), 50 iterations; ``compile_count()`` 1, finite metrics, the
+   same operator count in each of 5 iterations (``op_counter``), no
+   flash launch; device kernels of 5 profiled iterations, env-steps/s and
+   episodes over the first and last 10;
+15. ViT (``vit``): ``b16`` at 224 px, batch 64, fp32 masters, bf16
+   compute, remat, 10 constant-Adam steps at 1e-3 on the toy task of
+   ``tests/test_model_vit.py``; the loss falls, no flash launch; step ms
+   on CUDA events, images/s, MFU, peak memory;
+16. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
 
-Each path (serve, serve_kv, llm, spec, moe, train, driver, moe_train)
+Each path (serve, serve_kv, llm, spec, moe, train, driver, moe_train,
+rlhf)
 zeroes every kernel's launch count
 just before it runs and reads them just after; a kernel of the paths that
 was not launched fails the run (the float32 CUDA-core forward is on no
@@ -303,6 +327,9 @@ KERNEL_CASES = {
     # the 8x410m MoE preset's train step: 16/16 heads of 64 at s 2048
     "train_8x410m": (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 16, 64, True, 0,
                      "bfloat16"),
+    # the RLHF update's forward at 1b: 8 sequences of 128 + 128 tokens,
+    # the last one dropped (255 = 128 + 128 - 1 rows: a ragged tile)
+    "rlhf_1b_s255": (8, 255, 255, 32, 4, 64, True, 0, "bfloat16"),
 }
 # the launch each path makes most: train and prefill on the tensor-core
 # kernel, decode on the split-KV one; float32 (on neither path) on the
@@ -313,7 +340,8 @@ LIBRARY_CASES = ("prefill_7b", "cached_prefill_7b", "decode_7b_b8",
                  "decode_7b_b1", "decode_1b_gqa_b8", "decode_7b_b1_s4096",
                  "decode_dead_and_first_chunk_d64", "fp32_d128_decode",
                  "train_1b_d64_gqa", "train_7b_d128", "verify_7b_k4",
-                 "decode_8x410m_b8", "prefill_8x410m", "train_8x410m")
+                 "decode_8x410m_b8", "prefill_8x410m", "train_8x410m",
+                 "rlhf_1b_s255")
 # the crossover cases: bf16, d 128, s_k 1024, the rows at the end of the
 # keys, one row below and at fwd_tiling's threshold
 THRESHOLD_SHAPE = (8, 1024, 32, 32, 128)   # b, sk, hq, hkv, d
@@ -496,9 +524,11 @@ BWD_CASES = {
     "fp32_d128": (1, 130, 130, 4, 2, 128, True, 0, "float32"),
     "train_8x410m": (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 16, 64, True, 0,
                      "bfloat16"),
+    "rlhf_1b_s255": (8, 255, 255, 32, 4, 64, True, 0, "bfloat16"),
 }
 BWD_HEADLINE_CASE = "train_1b_d64_gqa"   # the shape the train path gives
-BWD_LIBRARY_CASES = ("train_1b_d64_gqa", "train_7b_d128", "train_8x410m")
+BWD_LIBRARY_CASES = ("train_1b_d64_gqa", "train_7b_d128", "train_8x410m",
+                     "rlhf_1b_s255")
 
 
 def bwd_work(torch, b, sq, sk, hq, hkv, d, causal, offs, dtype):
@@ -2600,8 +2630,371 @@ def moe_train_phase(torch, np, tts, tflops, flash):
     return launches
 
 
+# ------------------------------------------------------------ phases 13-15
+
+RLHF_PRESET = "1b"
+RLHF_CFG = {"num_prompts": 8, "prompt_len": 128, "max_new_tokens": 128,
+            "max_slots": 8, "decode_stride": 8, "num_epochs": 2}
+RLHF_ITERS = 3
+RLHF_CHECK_TOKENS = 8
+RLHF_ROLE_METHODS = (("generator", "generate", "generate"),
+                     ("reward", "score", "score_reward"),
+                     ("reference", "logprobs", "score_ref"),
+                     ("learner", "update", "update"),
+                     ("learner", "ship_weights", "ship"),
+                     ("generator", "sync_weights", "sync_swap"))
+
+
+def rlhf_expected_launches(n_layers, epochs, admitted, decode_steps):
+    """Each role phase's launches by kernel in one iteration: a batch-1
+    prefill a prompt and a decode kernel a layer a decode step; one forward
+    a layer for each scoring model; the learner's old-logprob forward,
+    then per epoch a forward and its remat recompute a layer and one dq
+    and dkv a layer; nothing while the weights move."""
+    L = n_layers
+    zero = {"flash_fwd_tcb": 0, "flash_fwd_dec": 0, "flash_fwd_simt": 0,
+            "flash_dq": 0, "flash_dkv": 0, "flash_bwd": 0}
+    want = {phase: dict(zero) for _, _, phase in RLHF_ROLE_METHODS}
+    want["generate"].update(flash_fwd_tcb=L * admitted,
+                            flash_fwd_dec=L * decode_steps)
+    want["score_reward"]["flash_fwd_tcb"] = L
+    want["score_ref"]["flash_fwd_tcb"] = L
+    want["update"].update(flash_fwd_tcb=L + 2 * L * epochs,
+                          flash_dq=L * epochs, flash_dkv=L * epochs,
+                          flash_bwd=L * epochs)
+    for phase in want.values():
+        phase["flash_fwd"] = sum(phase[f"flash_fwd_{k}"]
+                                 for k in ("tcb", "dec", "simt"))
+    return want
+
+
+def rlhf_phase(torch, np, tllama, TG, tts, tflops, flash):
+    """The RLHF pipeline at 1b, full width and depth: three iterations of
+    generate, score, update and sync on one card, each role phase's
+    launches counted by kernel."""
+    from ray_tpu_torch.rl.rlhf import pipeline as tpipe
+
+    cfg = dataclasses.replace(tllama.PRESETS[RLHF_PRESET], attn_impl="flash")
+    rc = tpipe.RLHFConfig(preset=cfg, **RLHF_CFG)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = tpipe.RLHFPipeline(rc, device=DEV)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mem_built = torch.cuda.memory_allocated()
+    ref_before = {k: t.clone() for k, t in
+                  tts._leaves(pipe.reference._params).items()}
+    roles = {"generator": pipe.generator, "reward": pipe.reward,
+             "reference": pipe.reference, "learner": pipe.learner}
+    by_phase = {}
+
+    def counted(fn, phase):
+        def run(*a, **kw):
+            before = read_launches(flash)
+            out = fn(*a, **kw)
+            after = read_launches(flash)
+            by_phase[phase] = {k: after[k] - before[k] for k in after}
+            return out
+        return run
+
+    for role, method, phase in RLHF_ROLE_METHODS:
+        setattr(roles[role], method, counted(getattr(roles[role], method),
+                                             phase))
+    results, phase_launches, want_launches, engine_steps = [], [], [], []
+    zero_launches(flash)
+    try:
+        for _ in range(RLHF_ITERS):
+            e0 = pipe.generator.engine.stats()
+            by_phase.clear()
+            results.append(pipe.run_iteration())
+            e1 = pipe.generator.engine.stats()
+            steps = e1["decode_steps"] - e0["decode_steps"]
+            admitted = e1["admitted"] - e0["admitted"]
+            engine_steps.append({"decode_steps": steps,
+                                 "admitted": admitted})
+            phase_launches.append(dict(by_phase))
+            want_launches.append(rlhf_expected_launches(
+                cfg.n_layers, rc.num_epochs, admitted, steps))
+        launches = read_launches(flash)
+        peak = torch.cuda.max_memory_allocated()
+        for role, method, _ in RLHF_ROLE_METHODS:
+            delattr(roles[role], method)
+        ref_unchanged = all(torch.equal(t, ref_before[k]) for k, t in
+                            tts._leaves(pipe.reference._params).items())
+        del ref_before
+        # the generator's greedy continuation of one prompt against
+        # batch-1 generate on the learner's params cast to bf16
+        prompt = np.random.default_rng(1).integers(
+            1, cfg.vocab_size, rc.prompt_len).astype(np.int64)
+        check_out = pipe.generator.generate([list(prompt)],
+                                            RLHF_CHECK_TOKENS)
+        engine_toks = [int(t) for t in
+                       check_out["sequences"][0][rc.prompt_len:]]
+        bf16 = tpipe._copy_tree(pipe.learner.get_params(),
+                                torch.device(DEV), cfg.compute_dtype)
+        # the engine's cache length, so the decode kernel splits its keys
+        # as the engine's does
+        ref_toks = TG.generate(bf16, prompt[None], cfg,
+                               max_new_tokens=RLHF_CHECK_TOKENS,
+                               max_len=rc.max_len, device=DEV)[0].tolist()
+        del bf16
+        summary = pipe.stats()["recorder"]
+    finally:
+        pipe.shutdown()
+    seq = rc.prompt_len + rc.max_new_tokens - 1
+    epoch_flops = tflops.train_step_flops(cfg, rc.num_prompts, seq)
+    # the old-logprob forward is a third of a train step (2N of 6N, and
+    # the attention term's forward third)
+    update_flops = (rc.num_epochs + 1.0 / 3.0) * epoch_flops
+    per_iter = []
+    for r, steps in zip(results, engine_steps):
+        upd_s = r["phases_actor_s"]["update"]
+        per_iter.append({
+            "iteration": r["iteration"], "loss": r["loss"],
+            "kl_mean": r["kl_mean"], "reward_mean": r["reward_mean"],
+            "phases_s": r["phases_s"], "phases_actor_s": r["phases_actor_s"],
+            "tokens_generated": r["tokens_generated"],
+            "generate_tok_s": r["generate_tok_s"], **steps,
+            "update_tokens_per_s": rc.num_epochs * rc.num_prompts * seq
+            / upd_s,
+            "update_mfu": tflops.mfu(update_flops, upd_s),
+            "sync_bytes": r["sync_bytes"], "sync_s": r["sync_s"],
+            "swap_drain_s": r["swap_drain_s"], "receipt": r["receipt"],
+            "weights_version": r["weights_version"],
+            "decoded_version": r["decoded_version"],
+            "staleness": r["staleness"],
+            "bubble_fraction": r.get("bubble_fraction"),
+            "coverage": r.get("coverage")})
+    emit({"phase": "rlhf", "config": f"{RLHF_PRESET}, {cfg.n_layers} "
+                                     "layers, fp32 masters, bf16 compute, "
+                                     "attn flash, remat; generator bf16",
+          "rlhf_config": {**RLHF_CFG, "iterations": RLHF_ITERS,
+                          "lr": rc.lr, "kl_coeff": rc.kl_coeff,
+                          "clip_param": rc.clip_param},
+          "build_s": build_s, "mem_after_build_bytes": mem_built,
+          "peak_mem_bytes": peak, "iterations": per_iter,
+          "update_flops": update_flops,
+          "mfu_peak": "989e12 bf16 dense (H100 SXM)",
+          "recorder": {k: summary.get(k) for k in (
+              "bubble_fraction", "coverage", "role_busy_frac",
+              "role_idle_frac", "actor_s", "driver_s", "tax_s",
+              "staleness", "overhead_frac", "receipt_last")},
+          "launches": launches, "launches_by_iteration": phase_launches,
+          "reference_bit_unchanged": ref_unchanged,
+          "greedy_check": {"engine": engine_toks, "generate": ref_toks,
+                           "weights_version":
+                           check_out["weights_version"]}})
+    losses = [r["loss"] for r in results]
+    check(all(np.isfinite(losses)), f"non-finite RLHF loss: {losses}")
+    check(results[0]["kl_mean"] == 0.0,
+          f"iteration 1 kl_mean {results[0]['kl_mean']}, want exactly 0 "
+          f"(reference and learner hold the same weights)")
+    check(results[1]["kl_mean"] != 0.0,
+          "iteration 2 kl_mean is 0: the reference tracks the learner")
+    check(ref_unchanged, "the reference's params changed")
+    for a, b in zip(results, results[1:]):
+        check(a["weights_version"] == b["decoded_version"],
+              f"iteration {b['iteration']} decoded version "
+              f"{b['decoded_version']}, the sync before it shipped "
+              f"{a['weights_version']}")
+    check(all(r["staleness"] == 0 for r in results),
+          f"staleness {[r['staleness'] for r in results]}")
+    check(check_out["weights_version"] == results[-1]["weights_version"],
+          "the check prompt did not decode under the last sync's weights")
+    check(engine_toks == ref_toks,
+          f"generator {engine_toks} != generate on the learner's params "
+          f"{ref_toks}")
+    for i, (got, want) in enumerate(zip(phase_launches, want_launches)):
+        for phase, w in want.items():
+            g = {k: got[phase][k] for k in w}
+            check(g == w, f"iteration {i + 1} {phase}: launches {g}, "
+                          f"want {w}")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+ANAKIN_ITERS, ANAKIN_PROFILED = 50, 5
+
+
+def op_counter(torch):
+    """A dispatch mode counting every operator call beneath autograd (the
+    backward's included): each one launches the device's kernels for it,
+    so an iteration with a fixed program calls the same number."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpCount(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    return OpCount()
+
+
+def anakin_phase(torch, np, flash):
+    """The fused PPO iteration (AnakinConfig's defaults): 50 iterations,
+    each metric read back between iterations; then operator calls counted
+    in each of a few iterations, and device kernels under the profiler."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.rl.anakin import AnakinConfig, AnakinRunner
+
+    cfg = AnakinConfig()
+    runner = AnakinRunner(cfg, device=DEV)
+    zero_launches(flash)
+    runner.train(1)                       # warm: builds the GEMM plans
+    runner.block()
+    t0 = time.perf_counter()
+    metrics = [runner.train(1) for _ in range(ANAKIN_ITERS)]
+    runner.block()
+    loop_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runner.train(10)                      # no host read between these
+    runner.block()
+    fused_s = time.perf_counter() - t0
+    ops = []
+    for _ in range(ANAKIN_PROFILED):
+        with op_counter(torch) as count:
+            runner.train(1)
+        ops.append(count.n)
+    runner.block()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = []
+    for _ in range(ANAKIN_PROFILED):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            runner.train(1)
+            runner.block()
+        kernels.append(Counter(e.name for e in prof.events()
+                               if e.device_type == cuda))
+    launches = read_launches(flash)
+    episodes = [m["episodes_done"] for m in metrics]
+    last = kernels[-1]
+    emit({"phase": "anakin", "config": dataclasses.asdict(cfg),
+          "iterations": ANAKIN_ITERS,
+          "env_steps_per_s_read_each_iteration":
+          ANAKIN_ITERS * cfg.env_steps_per_iter / loop_s,
+          "env_steps_per_s_10_unread": 10 * cfg.env_steps_per_iter / fused_s,
+          "iteration_ms": loop_s * 1e3 / ANAKIN_ITERS,
+          "ops_per_iteration": ops,
+          "device_kernels_per_iteration": [sum(k.values())
+                                           for k in kernels],
+          # by name, where a profiled iteration's kernels differ from the
+          # last one's
+          "device_kernel_diffs": [
+              {n: k[n] - last[n] for n in set(k) | set(last)
+               if k[n] != last[n]} for k in kernels[:-1]],
+          "episodes_done_first_10": episodes[:10],
+          "episodes_done_last_10": episodes[-10:],
+          "last_metrics": metrics[-1],
+          "compile_count": runner.compile_count(),
+          "flash_launches": launches})
+    check(runner.compile_count() == 1,
+          f"compile_count {runner.compile_count()}, want 1")
+    check(all(np.isfinite(v) for m in metrics for v in m.values()),
+          "non-finite Anakin metric")
+    check(len(set(ops)) == 1 and ops[0] > 0,
+          f"operator calls per iteration differ: {ops}")
+    check(all(sum(k.values()) > 0 for k in kernels),
+          "no device kernel in a profiled iteration")
+    check(all(v == 0 for v in launches.values()),
+          f"a flash kernel launched in the fused PPO iteration: {launches}")
+
+
+VIT_PRESET, VIT_BATCH, VIT_STEPS, VIT_LR = "b16", 64, 10, 1e-3
+
+
+def vit_toy_images(np, n, size, seed=0):
+    """tests/test_model_vit.py's 2-class toy at ``size``: the class is
+    which half of the image is brighter."""
+    rng = np.random.default_rng(seed)
+    imgs = rng.uniform(0, 1, (n, size, size, 3)).astype(np.float32)
+    labels = (rng.random(n) < 0.5).astype(np.int32)
+    imgs[labels == 1, :size // 2] += 1.0
+    imgs[labels == 0, size // 2:] += 1.0
+    return imgs, labels
+
+
+def vit_phase(torch, np, tts, tflops, flash):
+    """ViT-B/16 at 224 px: 10 constant-Adam steps on the toy task, then a
+    profiled one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models import vit as tvit
+
+    cfg = tvit.PRESETS[VIT_PRESET]
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = tvit.init_params(cfg, generator=gen, device=DEV)
+    opt = tts.Adam(VIT_LR)
+    state = opt.init(params)
+    imgs, labels = vit_toy_images(np, VIT_BATCH, cfg.image_size)
+    batch = {"images": torch.from_numpy(imgs).to(DEV),
+             "labels": torch.from_numpy(labels).to(DEV)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(flash)
+    losses, events = [], []
+    for _ in range(VIT_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        loss, grads = tts.value_and_grad(
+            lambda p: tvit.cls_loss(p, batch, cfg), params)
+        opt.update(params, grads, state)
+        del grads
+        ev[1].record()
+        losses.append(float(loss))
+        events.append(ev)
+    launches = read_launches(flash)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    med_ms = float(np.median(step_ms[2:]))
+    flops = tflops.vit_step_flops(cfg, VIT_BATCH)
+    # where a step's device time goes: one more step under the profiler
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loss, grads = tts.value_and_grad(
+            lambda p: tvit.cls_loss(p, batch, cfg), params)
+        opt.update(params, grads, state)
+        del grads
+        torch.cuda.synchronize()
+    per_kernel = device_kernel_ms(torch, prof, 1)
+    busy = sum(per_kernel.values())
+    gemm_ms = sum(t for n, t in per_kernel.items()
+                  if "gemm" in n.lower() or "nvjet" in n.lower())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
+    emit({"phase": "vit", "config": f"{VIT_PRESET} ({cfg.num_params()} "
+                                    f"params), {cfg.image_size} px, fp32 "
+                                    "masters, bf16 compute, remat, "
+                                    "constant Adam",
+          "batch": VIT_BATCH, "lr": VIT_LR, "losses": losses,
+          "step_event_ms": step_ms, "median_step_ms_steps_3_to_10": med_ms,
+          "images_per_s": VIT_BATCH * 1e3 / med_ms, "step_flops": flops,
+          "mfu": tflops.mfu(flops, med_ms / 1e3),
+          "mfu_peak": "989e12 bf16 dense (H100 SXM)",
+          "peak_mem_bytes": peak, "flash_launches": launches,
+          "profiled_step": {
+              "device_busy_ms": busy if busy else "not measured",
+              "device_idle_share": 1 - busy / med_ms if busy else
+              "not measured",
+              "gemm_ms": gemm_ms, "device_kernels": sum(
+                  1 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+              "top_kernels_ms": [[n[:80], t] for n, t in top]}})
+    check(all(np.isfinite(losses)), f"non-finite ViT loss: {losses}")
+    check(losses[-1] < losses[0], f"ViT loss did not fall: {losses}")
+    check(all(v == 0 for v in launches.values()),
+          f"a flash kernel launched in ViT: {launches}")
+    del params, state, batch
+    torch.cuda.empty_cache()
+
+
 PHASES = ("kernel", "bwd", "integration", "grad", "serve", "llm", "spec",
-          "moe", "train", "driver", "moe_train")
+          "moe", "train", "driver", "moe_train", "rlhf", "anakin", "vit")
 
 
 def kernel_entry(name, source, replaces, launches, head, part=None,
@@ -2705,6 +3098,13 @@ def main(argv=None) -> int:
     if "moe_train" in only:
         launches["moe_train"] = moe_train_phase(torch, np, tts, tflops,
                                                 flash)
+    if "rlhf" in only:
+        launches["rlhf"] = rlhf_phase(torch, np, tllama, TG, tts, tflops,
+                                      flash)
+    if "anakin" in only:
+        anakin_phase(torch, np, flash)
+    if "vit" in only:
+        vit_phase(torch, np, tts, tflops, flash)
     if args.only is not None:
         print(json.dumps({"partial_run": sorted(only)}), flush=True)
         return 0

@@ -8,7 +8,10 @@ gradients through the config's family (``model_family``: the Llama
 decoder or the MoE; ``attn_impl="flash"`` runs the CUDA flash kernels
 forward and backward), then the optimizer. Both step functions run under
 the step profiler's hook (``_instrumented``), one predicate a step while
-profiling is off.
+profiling is off. ``Adam`` is the constant-rate ``optax.adam`` (optionally
+behind a global-norm clip) that the RLHF learner and the fused PPO
+iteration use; both optimizers share one moment update (``_adam_apply``).
+``value_and_grad`` is ``jax.value_and_grad`` over a params tree.
 
 Unlike JAX, which donates the buffers to a pure function, the step updates
 params and optimizer state in place and returns the same objects: at the
@@ -33,17 +36,68 @@ from ray_tpu_torch.util import step_profiler
 
 Batch = Dict[str, torch.Tensor]
 B1, B2, EPS = 0.9, 0.95, 1e-8    # JAX's default_optimizer passes these
+ADAM_B2 = 0.999                  # optax.adam's default (b1, eps as above)
 
 
-def _leaves(params: llama.Params) -> Dict[str, torch.Tensor]:
-    """Every param tensor by name, layer weights as ``layers/<name>``."""
+def _leaves(params) -> Dict[str, torch.Tensor]:
+    """Every param tensor by its path, parts joined by ``/``: the Llama
+    family's layer weights as ``layers/<name>``, a list's items by index
+    (an MLP's ``pi/layers/0/w``)."""
     flat = {}
-    for name, node in params.items():
+
+    def walk(prefix: str, node) -> None:
         if isinstance(node, dict):
-            flat.update({f"{name}/{k}": t for k, t in node.items()})
+            items = node.items()
+        elif isinstance(node, (list, tuple)):
+            items = enumerate(node)
         else:
-            flat[name] = node
+            flat[prefix] = node
+            return
+        for k, child in items:
+            walk(f"{prefix}/{k}" if prefix else str(k), child)
+
+    walk("", params)
     return flat
+
+
+def _adam_init(params) -> dict:
+    leaves = _leaves(params)
+    zeros = lambda: {k: torch.zeros_like(t, dtype=torch.float32)
+                     for k, t in leaves.items()}
+    return {"count": 0, "mu": zeros(), "nu": zeros()}
+
+
+def _clip_scale(grads: Dict[str, torch.Tensor], max_norm: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(global norm, scale): ``optax.clip_by_global_norm``'s factor,
+    max_norm / norm when the norm is at least ``max_norm``, else 1. A
+    device tensor: no host read."""
+    norm = torch.nn.utils.get_total_norm(list(grads.values()))
+    return norm, torch.where(norm < max_norm, 1.0, max_norm / norm)
+
+
+@torch.no_grad()
+def _adam_apply(params, grads: Dict[str, torch.Tensor], state: dict, *,
+                lr: float, b1: float, b2: float, eps: float,
+                scale: Optional[torch.Tensor] = None,
+                weight_decay: float = 0.0) -> None:
+    """One Adam step in place, optax's arithmetic: each grad times
+    ``scale`` (the clip factor; consumed in place), moments m = b1 m +
+    (1 - b1) g and v = b2 v + (1 - b2) g^2 bias-corrected by the count
+    after its increment, update m^ / (sqrt(v^) + eps) plus
+    ``weight_decay`` * param, then the param moves by -lr times it."""
+    count = state["count"] + 1
+    bc1, bc2 = 1.0 - b1 ** count, 1.0 - b2 ** count
+    for name, p in _leaves(params).items():
+        g = grads[name] if scale is None else grads[name].mul_(scale)
+        m, v = state["mu"][name], state["nu"][name]
+        m.mul_(b1).add_(g, alpha=1.0 - b1)
+        v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
+        u = (m / bc1).div_((v / bc2).sqrt_().add_(eps))
+        if weight_decay:
+            u.add_(p, alpha=weight_decay)
+        p.add_(u, alpha=-lr)
+    state["count"] = count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,32 +132,48 @@ class AdamW:
         return self.lr * 0.5 * (1.0 + math.cos(math.pi * t / decay))
 
     def init(self, params: llama.Params) -> dict:
-        leaves = _leaves(params)
-        zeros = lambda: {k: torch.zeros_like(t, dtype=torch.float32)
-                         for k, t in leaves.items()}
-        return {"count": 0, "mu": zeros(), "nu": zeros()}
+        return _adam_init(params)
 
-    @torch.no_grad()
     def update(self, params: llama.Params, grads: Dict[str, torch.Tensor],
                state: dict) -> torch.Tensor:
         """Apply one step to ``params`` and ``state`` in place; returns the
         global norm of ``grads`` before clipping. ``grads`` is consumed (it
         is clipped in place)."""
-        norm = torch.nn.utils.get_total_norm(list(grads.values()))
-        clip = torch.where(norm < self.grad_clip, 1.0,
-                           self.grad_clip / norm)
-        lr = self.schedule(state["count"])
-        count = state["count"] + 1
-        bc1, bc2 = 1.0 - B1 ** count, 1.0 - B2 ** count
-        for name, p in _leaves(params).items():
-            g = grads[name].mul_(clip)
-            m, v = state["mu"][name], state["nu"][name]
-            m.mul_(B1).add_(g, alpha=1.0 - B1)
-            v.mul_(B2).addcmul_(g, g, value=1.0 - B2)
-            u = (m / bc1).div_((v / bc2).sqrt_().add_(EPS))
-            u.add_(p, alpha=self.weight_decay)
-            p.add_(u, alpha=-lr)
-        state["count"] = count
+        norm, clip = _clip_scale(grads, self.grad_clip)
+        _adam_apply(params, grads, state, lr=self.schedule(state["count"]),
+                    b1=B1, b2=B2, eps=EPS, scale=clip,
+                    weight_decay=self.weight_decay)
+        return norm
+
+
+@dataclasses.dataclass(frozen=True)
+class Adam:
+    """``optax.adam(lr)`` at a constant rate, behind
+    ``optax.clip_by_global_norm(grad_clip)`` when ``grad_clip`` is set
+    (``optax.chain(clip_by_global_norm(c), adam(lr))``): optax's defaults
+    b1 0.9, b2 0.999, eps 1e-8, no weight decay, no schedule, so the first
+    step already moves by ``lr``. The RLHF learner and the fused PPO
+    iteration train with it (``ray_tpu/rl/rlhf/pipeline.py:164``,
+    ``ray_tpu/rl/anakin.py:73-74``)."""
+
+    lr: float
+    grad_clip: Optional[float] = None
+
+    def init(self, params) -> dict:
+        return _adam_init(params)
+
+    def update(self, params, grads: Dict[str, torch.Tensor],
+               state: dict) -> torch.Tensor:
+        """Apply one step to ``params`` and ``state`` in place; returns the
+        global norm of ``grads`` (before clipping, when clipped). ``grads``
+        is consumed."""
+        if self.grad_clip is None:
+            norm, clip = torch.nn.utils.get_total_norm(
+                list(grads.values())), None
+        else:
+            norm, clip = _clip_scale(grads, self.grad_clip)
+        _adam_apply(params, grads, state, lr=self.lr, b1=B1, b2=ADAM_B2,
+                    eps=EPS, scale=clip)
         return norm
 
 
@@ -148,6 +218,31 @@ def _to_device(batch: Batch, device: torch.device) -> Batch:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+def value_and_grad(fn: Callable, params, has_aux: bool = False):
+    """``jax.value_and_grad`` over a params tree: ``fn(params)`` gives a
+    scalar loss (``(loss, aux)`` with ``has_aux``); returns that output,
+    detached, and the loss's gradient for every leaf by its ``_leaves``
+    name (zeros for a leaf the loss does not reach)."""
+    leaves = _leaves(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    try:
+        out = fn(params)
+        loss = out[0] if has_aux else out
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True,
+                                    materialize_grads=True)
+    finally:
+        for t in leaves.values():
+            t.requires_grad_(False)
+    detach = lambda t: t.detach() if isinstance(t, torch.Tensor) else t
+    if has_aux:
+        out = (detach(out[0]), {k: detach(v) for k, v in out[1].items()})
+    else:
+        out = detach(out)
+    return out, dict(zip(leaves, grads))
+
+
 def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW,
                     loss_fn: Optional[Callable] = None,
                     device: DeviceLike = None) -> Callable:
@@ -169,19 +264,10 @@ def _step_fn(cfg, optimizer: AdamW, loss_fn: Optional[Callable],
     def step(params, opt_state, batch):
         check_params_on(params, device)
         batch = _to_device(batch, device)
-        leaves = _leaves(params)
-        for t in leaves.values():
-            t.requires_grad_(True)
-        try:
-            loss = loss_fn(params, batch, cfg)
-            grads = torch.autograd.grad(loss, list(leaves.values()),
-                                        allow_unused=True,
-                                        materialize_grads=True)
-        finally:
-            for t in leaves.values():
-                t.requires_grad_(False)
-        gnorm = optimizer.update(params, dict(zip(leaves, grads)), opt_state)
-        return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
+        loss, grads = value_and_grad(lambda p: loss_fn(p, batch, cfg),
+                                     params)
+        gnorm = optimizer.update(params, grads, opt_state)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return step
 

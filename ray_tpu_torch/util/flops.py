@@ -4,9 +4,10 @@ The port's own copy of ``ray_tpu/util/flops.py``'s training formulas (the
 standard estimates: a matmul touching N parameters costs 2N FLOPs a token
 forward and 4N backward, so a train step is 6N a token plus the attention
 term 6 * L * S * hq * hd; a MoE config counts its ACTIVE parameters, the
-top-k experts a token runs through, not all of them). The peak is the H100 SXM's dense bf16 tensor
-rate from NVIDIA's data sheet, at the full 700 W power limit.
-"""
+top-k experts a token runs through, not all of them; a ViT step counts
+every patch token and the non-causal attention term). The peak is the
+H100 SXM's dense bf16 tensor rate from NVIDIA's data sheet, at the full
+700 W power limit."""
 
 from __future__ import annotations
 
@@ -31,6 +32,15 @@ def train_flops_per_token(cfg, seq: int) -> float:
 def train_step_flops(cfg, batch: int, seq: int) -> float:
     """One optimizer step over a [batch, seq] token block."""
     return batch * seq * train_flops_per_token(cfg, seq)
+
+
+def vit_step_flops(cfg, batch: int) -> float:
+    """ViT classification train step: 6N per patch token (the cls token
+    included) plus the NON-causal attention term (every token attends to
+    every token)."""
+    tokens = cfg.num_patches + 1
+    attn = 12 * cfg.n_layers * tokens * cfg.n_heads * cfg.head_dim
+    return batch * tokens * (6.0 * cfg.num_params() + attn)
 
 
 def mfu(flops: float, seconds: float, n_devices: int = 1,

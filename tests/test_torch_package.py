@@ -13,11 +13,14 @@ from ray_tpu_torch.data.iterator import iter_device_batches
 from ray_tpu_torch.models import generate as TG
 from ray_tpu_torch.models import llama as tllama
 from ray_tpu_torch.models import moe as tmoe
+from ray_tpu_torch.models import vit as tvit
 from ray_tpu_torch.models.convert import params_from_jax
 from ray_tpu_torch.models.serving import ContinuousBatcher, ContinuousEngine
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import flash as tflash
 from ray_tpu_torch.parallel import train_step as tts
+from ray_tpu_torch.rl import anakin as tanakin
+from ray_tpu_torch.rl.rlhf import pipeline as tpipe
 from ray_tpu_torch.serve import llm as tllm
 from ray_tpu_torch.train.checkpoint import Checkpoint
 from ray_tpu_torch.train.driver import StepDriver
@@ -58,7 +61,18 @@ def test_port_imports_no_jax_and_no_ray_tpu():
             "ray_tpu_torch/data/iterator.py",
             "ray_tpu_torch/util/step_profiler.py",
             "ray_tpu_torch/util/train_recorder.py",
-            "ray_tpu_torch/util/memory.py", "chip_smoke.py"} <= names
+            "ray_tpu_torch/util/memory.py",
+            "ray_tpu_torch/util/pipeline_recorder.py",
+            "ray_tpu_torch/models/vit.py",
+            "ray_tpu_torch/models/convert.py",
+            "ray_tpu_torch/rl/__init__.py", "ray_tpu_torch/rl/env.py",
+            "ray_tpu_torch/rl/device_env.py", "ray_tpu_torch/rl/models.py",
+            "ray_tpu_torch/rl/anakin.py",
+            "ray_tpu_torch/rl/algorithms/__init__.py",
+            "ray_tpu_torch/rl/algorithms/ppo.py",
+            "ray_tpu_torch/rl/rlhf/__init__.py",
+            "ray_tpu_torch/rl/rlhf/models.py",
+            "ray_tpu_torch/rl/rlhf/pipeline.py", "chip_smoke.py"} <= names
     bad = [(f.relative_to(ROOT), mod) for f in files
            for mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -108,6 +122,21 @@ def test_entry_points_default_to_cuda():
     ckpt = Checkpoint.from_dict({})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ckpt.load_pytree()
+    # the RLHF roles and pipeline, the fused PPO runner, ViT
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpipe.RLHFLearner("debug", 0, 1e-4, 0.1, 0.2, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpipe.RLHFReference("debug", 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpipe.RLHFReward("debug", 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpipe.RLHFGenerator("debug", 0, 2, 16, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpipe.RLHFPipeline()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tanakin.AnakinRunner()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tvit.init_params(tvit.PRESETS["debug"], generator=torch.Generator())
     # and asking for the CPU with params elsewhere is refused, not moved
     with pytest.raises(ValueError, match="params are on"):
         ContinuousBatcher(params, cfg, device="meta")
