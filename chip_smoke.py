@@ -133,10 +133,22 @@ process per source, all at once), then:
    compute, remat, 10 constant-Adam steps at 1e-3 on the toy task of
    ``tests/test_model_vit.py``; the loss falls, no flash launch; step ms
    on CUDA events, images/s, MFU, peak memory;
-16. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
+16. multi-GPU placement on one card (``mesh``): NCCL with world 1 through
+   a ``file://`` store, ``auto_mesh(1)``, ``init_sharded_state`` of the
+   1b preset at full width and depth (every leaf a DTensor with the
+   rules' placements), 8 steps of ``make_train_step(mesh=...)`` on the
+   train phase's batch against 8 plain steps from a copy of the same
+   params (loss and grad_norm within ``MESH_REL_TOL`` a step, the first
+   near ln 32000), 4 more through ``StepDriver(mesh=...,
+   steps_per_launch=4)`` against the same plain loop, launches exactly
+   2L/L/L a step, a sharded checkpoint of the state round-tripped
+   bit-equal, each op of the collective group API once on a one-member
+   NCCL group, and the process group torn down; mesh and plain step ms
+   (the DTensor host cost), the device busy share, peak memory and MFU;
+17. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
 
 Each path (serve, serve_kv, llm, spec, moe, train, driver, moe_train,
-rlhf)
+rlhf, mesh)
 zeroes every kernel's launch count
 just before it runs and reads them just after; a kernel of the paths that
 was not launched fails the run (the float32 CUDA-core forward is on no
@@ -2140,6 +2152,12 @@ def driver_phase(torch, np, tllama, tts, tflops, flash):
     from ray_tpu_torch.train.driver import StepDriver
     from ray_tpu_torch.util import step_profiler as SP
 
+    # the collector's older objects (what the earlier phases left) are
+    # frozen for the phase: a full collection over them stalls every host
+    # thread (the watchers' too) for longer than a launch's done-stamp
+    # margin (0.43 s in one full run of this script on an H100)
+    gc.collect()
+    gc.freeze()
     cfg = dataclasses.replace(tllama.PRESETS["1b"], attn_impl="flash")
     L = cfg.n_layers
     opt = tts.default_optimizer(lr=3e-4, warmup_steps=2, total_steps=100)
@@ -2242,14 +2260,34 @@ def driver_phase(torch, np, tllama, tts, tflops, flash):
         shadow = SyncShadow(torch)
         events.shadow = shadow
         zero_launches(flash)
+        # what can hold the host while a launch runs: the collector's
+        # passes and the allocator's device frees (each a device sync)
+        gc_pauses, gc_t0 = [], {}
+
+        def on_gc(phase, info):
+            if phase == "start":
+                gc_t0["t"] = time.perf_counter()
+            elif "t" in gc_t0:
+                gc_pauses.append([info["generation"],
+                                  time.perf_counter() - gc_t0.pop("t")])
+
+        alloc_keys = ("num_device_alloc", "num_device_free",
+                      "num_alloc_retries", "num_sync_all_streams")
+        alloc0 = [torch.cuda.memory_stats().get(k, 0) for k in alloc_keys]
+        gc.callbacks.append(on_gc)
         try:
             params, state, _ = drv.run(params, state,
                                        feed(DRIVER_BATCHES,
                                             DRIVER_BATCHES + DRIVER_SECOND))
             torch.cuda.synchronize()
         finally:
+            gc.callbacks.remove(on_gc)
             events.shadow = None
             shadow.close()
+        second_host = {
+            "gc_pauses_generation_s": gc_pauses,
+            "allocator_delta": {k: torch.cuda.memory_stats().get(k, 0) - a
+                                for k, a in zip(alloc_keys, alloc0)}}
         second_launches = read_launches(flash)
         wait_recorder(drv.recorder)
         second = drv.recorder.launches()[n_rec:]
@@ -2319,7 +2357,7 @@ def driver_phase(torch, np, tllama, tts, tflops, flash):
                          "sync_watcher_misses_launch_1": not align_second[
                              0]["sync_watcher_within_margin"]
                          if align_second else None,
-                         **speed(second_ms)},
+                         "host": second_host, **speed(second_ms)},
           "resume": {"checkpoint_count": loaded_count,
                      "steps_launches": resume_counts,
                      "launches": resume_launches},
@@ -2404,6 +2442,7 @@ def driver_phase(torch, np, tllama, tts, tflops, flash):
     check(prof.get("launch_source") == "recorder" and prof["launches"] == 2,
           f"step profiler's train launches do not join the recorder's: "
           f"{prof}")
+    gc.unfreeze()
     return drv_launches
 
 
@@ -2993,8 +3032,244 @@ def vit_phase(torch, np, tts, tflops, flash):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- mesh
+
+MESH_STEPS, MESH_DRIVER_K = 8, 4
+MESH_REL_TOL = 1e-5   # loss and grad_norm, mesh step against plain step
+
+
+def timed_steps(torch, step, params, state, batch, n):
+    """``n`` steps: losses, grad norms, host ms a step (to the loss's read)
+    and device ms a step (CUDA events around the call)."""
+    losses, norms, host_ms, events = [], [], [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        params, state, m = step(params, state, batch)
+        ev[1].record()
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        events.append(ev)
+    torch.cuda.synchronize()
+    return (params, state, losses, norms, host_ms,
+            [a.elapsed_time(b) for a, b in events])
+
+
+def mesh_phase(torch, np, tllama, tts, tflops, flash, smi):
+    """The 1b train step through a one-rank mesh (``mesh``): NCCL with
+    world 1 through a ``file://`` store, ``auto_mesh(1)``,
+    ``init_sharded_state`` at full width and depth (every leaf a DTensor
+    with the rules' placements), 8 steps of ``make_train_step(mesh=...)``
+    on the train phase's seeded [4, 2049] batch against 8 plain steps
+    from a copy of the same params, 4 steps through
+    ``StepDriver(mesh=..., steps_per_launch=4)`` from the same init, a
+    sharded checkpoint of the state round-tripped bit-equal, each op of
+    the collective group API once, and the process group torn down."""
+    import shutil
+    import tempfile
+
+    from torch.distributed.tensor import DTensor
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch import collective as col
+    from ray_tpu_torch.parallel import sharding
+    from ray_tpu_torch.train.checkpoint import Checkpoint
+    from ray_tpu_torch.train.driver import StepDriver
+
+    cfg = dataclasses.replace(tllama.PRESETS["1b"], attn_impl="flash")
+    L = cfg.n_layers
+    opt = tts.default_optimizer(lr=3e-4, warmup_steps=2, total_steps=100)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    out = {"phase": "mesh", "nvidia_smi": smi,
+           "config": "1b, 22 layers, fp32 params, bf16 compute, attn "
+                     "flash, remat; one-rank mesh",
+           "batch": [TRAIN_BATCH, TRAIN_SEQ + 1]}
+    try:
+        col.bootstrap_torch_distributed(
+            1, 0, "mesh", "nccl" if DEV == "cuda" else "gloo",
+            timeout_s=300, init_method=f"file://{tmp}/store")
+        mesh, _ = tts.auto_mesh(1, device_type=DEV)
+        plan = tts.compile_plan(cfg, mesh)
+
+        def init():
+            gen = torch.Generator(device=DEV).manual_seed(0)
+            params, state = tts.init_sharded_state(cfg, mesh, opt,
+                                                   generator=gen)
+            # the train phase's batch: the same generator after the init
+            tokens = torch.randint(0, cfg.vocab_size,
+                                   (TRAIN_BATCH, TRAIN_SEQ + 1),
+                                   generator=gen, device=DEV)
+            return params, state, {"tokens": tokens}
+
+        t0 = time.perf_counter()
+        params, state, batch = init()
+        torch.cuda.synchronize()
+        out["init_sharded_state_s"] = time.perf_counter() - t0
+        rules = tllama.sharding_rules()
+        cm = plan.compute_mesh
+        misplaced = [k for k, v in tts._leaves(params).items()
+                     if not isinstance(v, DTensor) or v.placements !=
+                     sharding.placements(rules.spec_for(k), cm, v.ndim)]
+        misplaced += [f"mu/{k}" for k, v in state["mu"].items()
+                      if v.placements != tts._leaves(params)[k].placements]
+        out["compute_mesh"] = str(cm)
+        out["placements"] = {k: str(v.placements) for k, v in
+                             tts._leaves(params).items()}
+        check(not misplaced, f"leaves off the rules' placements: "
+                             f"{misplaced}")
+
+        # the reference: plain steps from a copy of the same params
+        plain = tllama._unflatten({k: v.to_local().clone() for k, v in
+                                   tts._leaves(params).items()})
+        (_, _, ref_losses, ref_norms, plain_ms,
+         plain_dev_ms) = timed_steps(torch, tts.make_train_step(
+             cfg, opt, device=DEV), plain, opt.init(plain), batch,
+             MESH_STEPS)
+        del plain
+        torch.cuda.empty_cache()
+
+        # the path: 8 mesh steps, then 4 through the driver, counted
+        step = tts.make_train_step(cfg, opt, mesh=mesh)
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(flash)
+        (params, state, losses, norms, mesh_ms,
+         mesh_dev_ms) = timed_steps(torch, step, params, state, batch,
+                                    MESH_STEPS)
+        step_launches = read_launches(flash)
+        peak = torch.cuda.max_memory_allocated()
+        del params, state
+        torch.cuda.empty_cache()
+        params, state, batch = init()
+        drv = StepDriver(cfg, opt, mesh=mesh, steps_per_launch=MESH_DRIVER_K)
+        drv_metrics = []
+        params, state, _ = drv.run(params, state,
+                                   iter([batch] * MESH_DRIVER_K),
+                                   on_launch=drv_metrics.append)
+        torch.cuda.synchronize()
+        launches = read_launches(flash)
+        drv.recorder.close()
+        drv_losses = flat_losses(drv_metrics)
+
+        # outside the count: one profiled mesh step (device busy share)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            float(m["loss"])
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        busy = sum(device_kernel_ms(torch, prof, 1).values())
+
+        # a sharded checkpoint of the 1b state, round-tripped
+        ckpt = Checkpoint(f"{tmp}/ckpt")
+        tree = {"params": params, "mu": state["mu"], "nu": state["nu"],
+                "count": state["count"]}
+        t0 = time.perf_counter()
+        ckpt.save_pytree(tree, "state")
+        save_s = time.perf_counter() - t0
+        where = {"params": {k: v.placements for k, v in
+                            tts._leaves(params).items()},
+                 "mu": {k: v.placements for k, v in state["mu"].items()},
+                 "nu": {k: v.placements for k, v in state["nu"].items()}}
+        t0 = time.perf_counter()
+        back = ckpt.load_pytree("state", where, mesh=mesh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        unequal = []
+        for part in ("params", "mu", "nu"):
+            got = tts._leaves(back[part])
+            unequal += [f"{part}/{k}" for k, v in
+                        tts._leaves(tree[part]).items()
+                        if not (isinstance(got[k], DTensor) and torch.equal(
+                            got[k].to_local(), v.to_local()))]
+        check(not unequal and back["count"] == tree["count"],
+              f"checkpoint round trip differs: {unequal}")
+        nbytes = ckpt.last_save["bytes"]
+        del back, tree
+
+        # each op of the group API once, on a one-member NCCL group
+        col.init_collective_group(1, 0, "smoke")
+        x = torch.arange(6.0, device=DEV)
+        got = {"allreduce": col.allreduce(x, "smoke", "max"),
+               "reducescatter": col.reducescatter(x, "smoke"),
+               "allgather": col.allgather(x, "smoke")[0],
+               "broadcast": col.broadcast(x, 0, "smoke")}
+        col.barrier("smoke")
+        try:
+            col.send(x, 0, "smoke")
+            self_send = "sent"
+        except ValueError as e:
+            self_send = str(e)
+        stats = col.group_stats("smoke")
+        col.destroy_collective_group("smoke")
+        check(all(torch.equal(v, x) and v.data_ptr() != x.data_ptr()
+                  for v in got.values()) and self_send ==
+              "cannot send to self",
+              f"collectives on one member: {got}, self send {self_send}")
+        del params, state
+    finally:
+        col.clear_rendezvous("mesh")
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    rel = lambda a, b: abs(a - b) / abs(b)
+    gap = max(max(rel(a, b) for a, b in zip(losses, ref_losses)),
+              max(rel(a, b) for a, b in zip(norms, ref_norms)))
+    drv_gap = max(rel(a, b) for a, b in zip(drv_losses, ref_losses))
+    tokens_per_step, seq = tts._batch_tokens(batch)
+    step_flops = tokens_per_step * tflops.train_flops_per_token(cfg, seq)
+    med = lambda xs: float(np.median(xs[2:]))
+    out.update({
+        "losses": losses, "grad_norms": norms,
+        "plain_losses": ref_losses, "plain_grad_norms": ref_norms,
+        "max_rel_gap_vs_plain": gap, "bit_equal_to_plain":
+            losses == ref_losses and norms == ref_norms,
+        "driver_losses": drv_losses, "driver_max_rel_gap": drv_gap,
+        "driver_counts": [drv.steps, drv.launches],
+        "mesh_step_ms": mesh_ms, "plain_step_ms": plain_ms,
+        "mesh_step_event_ms": mesh_dev_ms, "plain_step_event_ms":
+            plain_dev_ms,
+        "median_step_ms_steps_3_to_8": {"mesh": med(mesh_ms),
+                                        "plain": med(plain_ms)},
+        "mesh_host_cost_ms": med(mesh_ms) - med(plain_ms),
+        "mfu": {"mesh": tflops.mfu(step_flops, med(mesh_ms) / 1e3),
+                "plain": tflops.mfu(step_flops, med(plain_ms) / 1e3)},
+        "mfu_peak": "989e12 bf16 dense (H100 SXM)",
+        "profiled_mesh_step": {
+            "wall_ms": prof_wall_ms,
+            "device_busy_ms": busy if busy else "not measured",
+            "device_busy_share": busy / prof_wall_ms if busy else
+            "not measured"},
+        "peak_mem_bytes": peak,
+        "checkpoint": {"bytes": nbytes, "save_s": save_s, "load_s": load_s},
+        "collectives": {"self_send": self_send, "stats": stats},
+        "launches_mesh_steps": step_launches, "launches": launches})
+    emit(out)
+    check(gap <= MESH_REL_TOL and drv_gap <= MESH_REL_TOL,
+          f"mesh step off the plain step: loss/grad_norm gap {gap}, "
+          f"driver {drv_gap} (tolerance {MESH_REL_TOL})")
+    check(abs(ref_losses[0] - np.log(cfg.vocab_size)) <= FIRST_LOSS_MARGIN,
+          f"first loss {ref_losses[0]} not within {FIRST_LOSS_MARGIN} of "
+          f"ln {cfg.vocab_size}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"mesh losses not finite and falling: {losses}")
+    check([drv.steps, drv.launches] == [MESH_DRIVER_K, 1],
+          f"driver ran {drv.steps} steps in {drv.launches} launches")
+    for name, per_step in (("flash_fwd_tcb", 2 * L), ("flash_dq", L),
+                           ("flash_dkv", L)):
+        check(step_launches[name] == per_step * MESH_STEPS
+              and launches[name] == per_step * (MESH_STEPS + MESH_DRIVER_K),
+              f"{name}: {step_launches[name]} launches in {MESH_STEPS} mesh "
+              f"steps, {launches[name]} with the driver's {MESH_DRIVER_K}; "
+              f"want exactly {per_step} a step")
+    return launches
+
+
 PHASES = ("kernel", "bwd", "integration", "grad", "serve", "llm", "spec",
-          "moe", "train", "driver", "moe_train", "rlhf", "anakin", "vit")
+          "moe", "train", "driver", "moe_train", "rlhf", "anakin", "vit",
+          "mesh")
 
 
 def kernel_entry(name, source, replaces, launches, head, part=None,
@@ -3105,6 +3380,9 @@ def main(argv=None) -> int:
         anakin_phase(torch, np, flash)
     if "vit" in only:
         vit_phase(torch, np, tts, tflops, flash)
+    if "mesh" in only:
+        launches["mesh"] = mesh_phase(torch, np, tllama, tts, tflops, flash,
+                                      smi)
     if args.only is not None:
         print(json.dumps({"partial_run": sorted(only)}), flush=True)
         return 0

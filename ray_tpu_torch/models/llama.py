@@ -21,6 +21,16 @@ in backward. JAX's ``jax.checkpoint`` with
 ``dots_with_no_batch_dims_saveable`` keeps the matmul outputs too: a
 different save set, the same values. The pipeline, ring/ulysses and 1f1b
 branches are not ported yet.
+
+On a mesh (``parallel/train_step.py``) the params and the batch are
+DTensors placed by ``sharding_rules`` and ``data_rules``, and the same
+functions run on them: each weight is cast and then all-gathered over
+fsdp where it is used (``sharding.gather_fsdp``, ZeRO-3); each block's
+attention and MLP run on the rank's local blocks (``sharding.rows_map``:
+rows over dp and fsdp, heads and ff columns over tp), so the flash
+kernels only ever see plain tensors, and the residual add sums the tp
+shares; the embedding lookup and the loss run under DTensor propagation
+on the vocab-sharded table and head.
 """
 
 from __future__ import annotations
@@ -38,6 +48,8 @@ from ray_tpu_torch.ops.attention import mha
 from ray_tpu_torch.ops.flash import flash_attention
 from ray_tpu_torch.ops.norms import rmsnorm
 from ray_tpu_torch.ops.rope import apply_rope, rope_angles
+from ray_tpu_torch.parallel import sharding
+from ray_tpu_torch.parallel.sharding import P, ShardingRules
 
 Params = Dict[str, object]
 
@@ -136,19 +148,24 @@ def init_params(cfg: LlamaConfig, *, generator: torch.Generator,
     ``device``) of every leaf of ``cfg.param_shapes()``; layer params
     stacked on a leading [n_layers] axis, stored in ``dtype`` (default:
     the compute dtype)."""
-    device = resolve_device(device)
-    dtype = dtype or cfg.compute_dtype
-    flat = {}
+    return _unflatten(dict(init_leaves(cfg, generator=generator,
+                                       device=resolve_device(device),
+                                       dtype=dtype or cfg.compute_dtype)))
+
+
+def init_leaves(cfg: LlamaConfig, *, generator: torch.Generator,
+                device: torch.device, dtype: torch.dtype):
+    """``init_params``' leaves one at a time, as (flat name, tensor) in
+    ``cfg.param_shapes()`` order: ``init_sharded_state`` places each
+    before the next is drawn."""
     for name, shape in cfg.param_shapes().items():
         fan_in = _fan_in(name, shape)
         if fan_in is None:
-            flat[name] = torch.ones(shape, dtype=dtype, device=device)
+            yield name, torch.ones(shape, dtype=dtype, device=device)
             continue
         x = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=device)
-        flat[name] = x.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
-        del x
-    return _unflatten(flat)
+        yield name, x.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
 
 
 def layer_params(params: Params, i: int) -> Dict[str, torch.Tensor]:
@@ -156,9 +173,28 @@ def layer_params(params: Params, i: int) -> Dict[str, torch.Tensor]:
     return {k: w[i] for k, w in params["layers"].items()}
 
 
+def weight(w: torch.Tensor, cfg) -> torch.Tensor:
+    """A param as a matmul uses it: cast to the compute dtype and, on a
+    mesh, all-gathered over fsdp (``sharding.gather_fsdp``)."""
+    return sharding.gather_fsdp(w.to(cfg.compute_dtype))
+
+
 def lm_head(params: Params, cfg: LlamaConfig) -> torch.Tensor:
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return head.to(cfg.compute_dtype)
+    return weight(head, cfg)
+
+
+def embed(params: Params, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    """The embedding rows of ``tokens`` in the compute dtype: gathered,
+    then cast (the values of JAX's cast-then-gather). On a mesh the lookup
+    runs on the table gathered over fsdp and still split over tp by vocab
+    (``sharding.embedding``): the residual stream starts partial over tp
+    and its first use sums it."""
+    table = params["embed"]
+    if not sharding.is_sharded(table):
+        return table[tokens].to(cfg.compute_dtype)
+    return sharding.embedding(tokens, sharding.gather_fsdp(table),
+                              cfg.compute_dtype)
 
 
 def attend(cfg: LlamaConfig, q: torch.Tensor, k: torch.Tensor,
@@ -179,33 +215,79 @@ def attend(cfg: LlamaConfig, q: torch.Tensor, k: torch.Tensor,
         f"attn_impl={cfg.attn_impl!r} is not ported yet (ROADMAP.md)")
 
 
+ATTN_KEYS = ("attn_norm", "wq", "wk", "wv", "wo")
+FFN_KEYS = ("mlp_norm", "w_gate", "w_up", "w_down")
+
+
+def _attention_out(cfg: LlamaConfig, x: torch.Tensor,
+                   layer: Dict[str, torch.Tensor], sin: torch.Tensor,
+                   cos: torch.Tensor,
+                   segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
+    """What pre-norm attention adds to the residual stream. On a rank's
+    blocks (heads split over tp) it is that rank's share: the sum over
+    its heads of their output projections."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    cdt = cfg.compute_dtype
+    h = rmsnorm(x, layer["attn_norm"].to(cdt), cfg.norm_eps)
+    q = apply_rope((h @ layer["wq"].to(cdt)).reshape(b, s, -1, hd), sin,
+                   cos)
+    k = apply_rope((h @ layer["wk"].to(cdt)).reshape(b, s, -1, hd), sin,
+                   cos)
+    v = (h @ layer["wv"].to(cdt)).reshape(b, s, -1, hd)
+    attn = attend(cfg, q, k, v, segment_ids=segment_ids)
+    return attn.reshape(b, s, -1) @ layer["wo"].to(cdt)
+
+
+def _ffn_out(cfg: LlamaConfig, x: torch.Tensor,
+             layer: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """What the pre-norm SwiGLU MLP adds to the residual stream (on a
+    rank's blocks: its share over its ff columns)."""
+    cdt = cfg.compute_dtype
+    h = rmsnorm(x, layer["mlp_norm"].to(cdt), cfg.norm_eps)
+    gate = F.silu(h @ layer["w_gate"].to(cdt))
+    up = h @ layer["w_up"].to(cdt)
+    return (gate * up) @ layer["w_down"].to(cdt)
+
+
+def _on_blocks(fn, cfg, x: torch.Tensor, layer: Dict[str, torch.Tensor],
+               keys: Tuple[str, ...], ids=()) -> torch.Tensor:
+    """``fn(x, {key: weight}, *ids)`` on a mesh: the weights cast and
+    gathered over fsdp (``weight``), then ``sharding.rows_map`` runs
+    ``fn`` on each rank's blocks."""
+    ws = tuple(weight(layer[k], cfg) for k in keys)
+    local = lambda x, *rest: fn(x, dict(zip(keys, rest[:len(keys)])),
+                                *rest[len(keys):])
+    return sharding.rows_map(local, x, ws, ids)
+
+
 def attention_half(cfg: LlamaConfig, x: torch.Tensor,
                    layer: Dict[str, torch.Tensor],
                    sin: torch.Tensor, cos: torch.Tensor,
                    segment_ids: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
-    """Pre-norm attention + residual."""
-    b, s, _ = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    cdt = cfg.compute_dtype
-    h = rmsnorm(x, layer["attn_norm"].to(cdt), cfg.norm_eps)
-    q = apply_rope((h @ layer["wq"].to(cdt)).reshape(b, s, hq, hd), sin, cos)
-    k = apply_rope((h @ layer["wk"].to(cdt)).reshape(b, s, hkv, hd), sin,
-                   cos)
-    v = (h @ layer["wv"].to(cdt)).reshape(b, s, hkv, hd)
-    attn = attend(cfg, q, k, v, segment_ids=segment_ids)
-    return x + attn.reshape(b, s, hq * hd) @ layer["wo"].to(cdt)
+    """Pre-norm attention + residual. On a mesh the attention runs on
+    each rank's [b/(dp*fsdp), s, h/tp, d] blocks, so the flash kernels
+    only see plain tensors; q and kv heads split contiguously by the same
+    tp keep GQA's head map local (``plan.compile_plan`` checks both head
+    counts divide by tp)."""
+    if not sharding.is_sharded(x):
+        return x + _attention_out(cfg, x, layer, sin, cos, segment_ids)
+    fn = lambda x, lw, *seg: _attention_out(cfg, x, lw, sin, cos,
+                                            seg[0] if seg else None)
+    ids = () if segment_ids is None else (segment_ids,)
+    return sharding.residual_add(
+        x, _on_blocks(fn, cfg, x, layer, ATTN_KEYS, ids))
 
 
 def ffn_half(cfg: LlamaConfig, x: torch.Tensor,
              layer: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Pre-norm SwiGLU MLP + residual — shared by the train and decode
     paths."""
-    cdt = cfg.compute_dtype
-    h = rmsnorm(x, layer["mlp_norm"].to(cdt), cfg.norm_eps)
-    gate = F.silu(h @ layer["w_gate"].to(cdt))
-    up = h @ layer["w_up"].to(cdt)
-    return x + (gate * up) @ layer["w_down"].to(cdt)
+    if not sharding.is_sharded(x):
+        return x + _ffn_out(cfg, x, layer)
+    fn = lambda x, lw: _ffn_out(cfg, x, lw)
+    return sharding.residual_add(x, _on_blocks(fn, cfg, x, layer, FFN_KEYS))
 
 
 def _block(cfg: LlamaConfig, x: torch.Tensor, layer: Dict[str, torch.Tensor],
@@ -222,8 +304,7 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     """tokens [batch, seq] -> (final-norm hidden [batch, seq, d], head
     [d, V]), both in the compute dtype."""
     cdt = cfg.compute_dtype
-    # gather, then cast: the values of JAX's cast-then-gather
-    x = params["embed"][tokens].to(cdt)
+    x = embed(params, tokens, cfg)
     sin, cos = rope_angles(tokens.shape[1], cfg.head_dim, cfg.rope_theta,
                            cdt, x.device)
     # unbind, not w[i]: one stack in backward instead of a full-size zero
@@ -283,9 +364,8 @@ def chunked_ce(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
     peak memory holds one slice instead of [B, S, V] and its gradient."""
     S = targets.shape[1]
     if chunk and S % chunk == 0 and S > chunk:
-        ones = torch.ones(targets.shape, dtype=torch.float32,
-                          device=targets.device)
-        m = ones if mask is None else mask.float()
+        m = (torch.ones_like(targets, dtype=torch.float32) if mask is None
+             else mask.float())
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         count = torch.zeros((), dtype=torch.float32, device=x.device)
         for c in range(0, S, chunk):
@@ -301,3 +381,30 @@ def chunked_ce(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
     if mask is None:
         return nll.mean()
     return (nll * mask).sum() / mask.sum().clamp(min=1)
+
+
+def sharding_rules(pipeline: bool = False) -> ShardingRules:
+    """JAX's param partitioning over the (dp, fsdp, tp) mesh
+    (``ray_tpu/models/llama.py:374-412``): the stacked-layer axis
+    unsharded, matrices with their contracting and output dims on (fsdp,
+    tp), so forward matmuls all-gather over fsdp (ZeRO-3) and reduce over
+    tp; norms replicated. The pipelined layout (layers over ``pp``) waits
+    for the pipeline schedules."""
+    if pipeline:
+        raise NotImplementedError(
+            "pipeline sharding rules need the gpipe/1f1b schedules, not "
+            "ported yet (ROADMAP.md Queue 1 item 9)")
+    return ShardingRules([
+        (r"embed$", P("tp", "fsdp")),
+        (r"lm_head$", P("fsdp", "tp")),
+        (r"layers/w[qkv]$", P(None, "fsdp", "tp")),
+        (r"layers/wo$", P(None, "tp", "fsdp")),
+        (r"layers/w_(gate|up)$", P(None, "fsdp", "tp")),
+        (r"layers/w_down$", P(None, "tp", "fsdp")),
+        (r"layers/.*norm", P(None)),
+        (r"norm", P()),
+    ])
+
+
+def data_rules() -> ShardingRules:
+    return ShardingRules([(r".*", P(("dp", "fsdp"), None))])

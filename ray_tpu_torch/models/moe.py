@@ -23,8 +23,15 @@ picks K distinct experts, so no expert holds more than G selections, and
 row ``Cb`` takes the dropped ones, whose outputs are discarded. No step
 reads a count back to the host.
 
-``sharding_rules`` (the ``ep`` axis) waits for the port's multi-GPU
-placement.
+On a mesh (``sharding_rules``: experts over ``ep``, their ff dim over
+``tp``, their model dim over ``fsdp``) the routing stays JAX's global one:
+the FFN's input is all-gathered over the data axes and every rank routes
+every token (``_route``, ``_assign``, through ``local_map``, the same on
+each rank),
+then runs only its experts and ff columns (``_experts``), so its output
+is partial over ep and tp and the residual add sums it. Every rank of a
+(dp, fsdp) group repeats the routing and its experts' work for the whole
+batch: the semantics of JAX's single program, not its speed.
 """
 
 from __future__ import annotations
@@ -39,6 +46,8 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.ops.norms import rmsnorm
 from ray_tpu_torch.ops.rope import rope_angles
+from ray_tpu_torch.parallel import sharding
+from ray_tpu_torch.parallel.sharding import P, ShardingRules
 
 Params = llama.Params
 
@@ -96,6 +105,10 @@ def init_params(cfg: MoEConfig, *, generator: torch.Generator,
                              dtype=dtype)
 
 
+init_leaves = llama.init_leaves
+_unflatten = llama._unflatten
+
+
 def _route(cfg: MoEConfig, tokens: torch.Tensor,
            layer: Dict[str, torch.Tensor]
            ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -109,19 +122,15 @@ def _route(cfg: MoEConfig, tokens: torch.Tensor,
     return probs, topk_idx
 
 
-def _moe_ffn(cfg: MoEConfig, h: torch.Tensor,
-             layer: Dict[str, torch.Tensor]
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[B, S, d] -> ([B, S, d], aux_loss): top-k capacity routing
-    (module docstring), dispatched by index."""
-    b, s, d = h.shape
+def _assign(cfg: MoEConfig, probs: torch.Tensor, topk_idx: torch.Tensor,
+            dtype: torch.dtype):
+    """Capacity slots for the selections (module docstring): (each
+    selection's row in its expert's buffer [G, K], the spare row
+    ``min(C, G)`` where dropped; keep [G, K]; gates [G, K] in ``dtype``, 0
+    where dropped; the aux loss)."""
+    G = probs.shape[0]
     E, K = cfg.n_experts, cfg.top_k
-    G = b * s
-    C = max(1, int(cfg.capacity_factor * G * K / E))
-    cdt = h.dtype
-    tokens = h.reshape(G, d)
-
-    probs, topk_idx = _route(cfg, tokens, layer)
+    C = _capacity(cfg, G)
     topk_probs = probs.gather(1, topk_idx)
     topk_probs = topk_probs / (topk_probs.sum(-1, keepdim=True) + 1e-9)
 
@@ -131,21 +140,109 @@ def _moe_ffn(cfg: MoEConfig, h: torch.Tensor,
     slot_flat = (onehot.cumsum(0) - onehot).gather(1, flat[:, None])[:, 0]
     slot = slot_flat.reshape(K, G).T                              # [G, K]
     keep = slot < C
-    gates = (topk_probs * keep).to(cdt)
-
-    cb = min(C, G)
-    row = torch.where(keep, slot, cb)          # dropped -> the spare row
-    expert_in = tokens.new_zeros(E, cb + 1, d).index_put(
-        (topk_idx, row), tokens[:, None, :].expand(G, K, d))
-    gate = F.silu(expert_in @ layer["e_gate"].to(cdt))
-    up = expert_in @ layer["e_up"].to(cdt)
-    expert_out = (gate * up) @ layer["e_down"].to(cdt)            # [E, Cb+1, d]
-    picked = expert_out[topk_idx, row]                            # [G, K, d]
-    picked = torch.where(keep[..., None], picked, 0)
-    out = (picked.float() * gates.float()[..., None]).sum(1).to(cdt)
+    gates = (topk_probs * keep).to(dtype)
+    row = torch.where(keep, slot, min(C, G))   # dropped -> the spare row
 
     frac = F.one_hot(topk_idx[:, 0], E).float().mean(0)          # top-1
     aux = E * (frac * probs.mean(0)).sum()
+    return row, keep, gates, aux
+
+
+def _capacity(cfg: MoEConfig, G: int) -> int:
+    """C, the slots of each expert's capacity buffer for G tokens."""
+    return max(1, int(cfg.capacity_factor * G * cfg.top_k / cfg.n_experts))
+
+
+def _experts(tokens: torch.Tensor, topk_idx: torch.Tensor,
+             row: torch.Tensor, keep: torch.Tensor, gates: torch.Tensor,
+             e_gate: torch.Tensor, e_up: torch.Tensor, e_down: torch.Tensor,
+             cb: int, first: int = 0) -> torch.Tensor:
+    """Experts ``first``.. (as many as ``e_gate`` holds) on their
+    selections: tokens scattered by index into an [E, cb + 1, d] buffer,
+    three batched matmuls, each token's K outputs gathered back and
+    summed, weighted by its gates. A dropped selection, or one of another
+    rank's experts, goes to the spare row ``cb`` and adds nothing; on a
+    rank's blocks the sum is its share, over its experts and ff
+    columns."""
+    G, d = tokens.shape
+    K, n, cdt = topk_idx.shape[1], e_gate.shape[0], tokens.dtype
+    mine = keep & (topk_idx >= first) & (topk_idx < first + n)
+    e = torch.where(mine, topk_idx - first, 0)
+    r = torch.where(mine, row, cb)
+    expert_in = tokens.new_zeros(n, cb + 1, d).index_put(
+        (e, r), tokens[:, None, :].expand(G, K, d))
+    gate = F.silu(expert_in @ e_gate.to(cdt))
+    up = expert_in @ e_up.to(cdt)
+    expert_out = (gate * up) @ e_down.to(cdt)                    # [n, cb+1, d]
+    picked = torch.where(mine[..., None], expert_out[e, r], 0)   # [G, K, d]
+    return (picked.float() * gates.float()[..., None]).sum(1).to(cdt)
+
+
+def _moe_ffn(cfg: MoEConfig, h: torch.Tensor,
+             layer: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, S, d] -> ([B, S, d], aux_loss): top-k capacity routing
+    (module docstring), dispatched by index."""
+    b, s, d = h.shape
+    tokens = h.reshape(b * s, d)
+    probs, topk_idx = _route(cfg, tokens, layer)
+    row, keep, gates, aux = _assign(cfg, probs, topk_idx, tokens.dtype)
+    out = _experts(tokens, topk_idx, row, keep, gates, layer["e_gate"],
+                   layer["e_up"], layer["e_down"],
+                   min(_capacity(cfg, b * s), b * s))
+    return out.reshape(b, s, d), aux
+
+
+def _sharded_ffn(cfg: MoEConfig, x: torch.Tensor,
+                 layer: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE FFN on a mesh (module docstring): (what it adds to the
+    residual stream x, aux loss). The routing map takes x gathered over
+    the data axes and gives every rank the same selections (all its
+    outputs replicated); the experts map gives each rank's share, partial
+    over ep and tp. Their local gradients: the routing's inputs get the
+    same full gradient on every rank (its outputs' gradients are summed
+    first); the experts' tokens and gates get shares, partial over ep and
+    tp; an expert weight gets its full gradient, the same on every rank
+    of a data group (each saw every token)."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    cdt = cfg.compute_dtype
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    b, s, d = x.shape
+    G = b * s
+    cb = min(_capacity(cfg, G), G)
+    rep = (Replicate(),) * len(names)
+    shares = tuple(Partial() if n in ("ep", "tp") else Replicate()
+                   for n in names)
+    norm, router = layer["mlp_norm"].to(cdt), llama.weight(
+        layer["router"], cfg)
+    experts = [llama.weight(layer[k], cfg)
+               for k in ("e_gate", "e_up", "e_down")]
+
+    def route(x, norm, router):
+        tokens = rmsnorm(x, norm, cfg.norm_eps).reshape(G, d)
+        probs, topk_idx = _route(cfg, tokens, {"router": router})
+        return (tokens, topk_idx,
+                *_assign(cfg, probs, topk_idx, tokens.dtype))
+
+    tokens, topk_idx, row, keep, gates, aux = local_map(
+        route, out_placements=(rep,) * 6, in_placements=(rep,) * 3,
+        in_grad_placements=(rep,) * 3, device_mesh=mesh,
+        redistribute_inputs=True)(x, norm, router)
+    first = sharding.block_box(layer["e_gate"].shape, mesh.shape,
+                               experts[0].placements,
+                               mesh.get_coordinate())[0][0]
+    out = local_map(
+        lambda *a: _experts(*a, cb=cb, first=first),
+        out_placements=(shares,),
+        in_placements=(rep,) * 5 + tuple(w.placements for w in experts),
+        in_grad_placements=(shares, rep, rep, rep, shares) + tuple(
+            w.placements for w in experts),
+        device_mesh=mesh, redistribute_inputs=True)(
+        tokens, topk_idx, row, keep, gates, *experts)
     return out.reshape(b, s, d), aux
 
 
@@ -157,6 +254,9 @@ def ffn_half(cfg: MoEConfig, x: torch.Tensor,
     capacity drops are a training-time load-balancing construct)."""
     c = (dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
          if drop_free else cfg)
+    if sharding.is_sharded(x):
+        ffn, aux = _sharded_ffn(c, x, layer)
+        return sharding.residual_add(x, ffn), aux
     h = rmsnorm(x, layer["mlp_norm"].to(cfg.compute_dtype), cfg.norm_eps)
     ffn, aux = _moe_ffn(c, h, layer)
     return x + ffn, aux
@@ -177,7 +277,7 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
     """-> (final-norm hidden, head, mean aux loss over layers); each block
     under ``torch.utils.checkpoint`` with ``cfg.remat`` and grad on."""
     cdt = cfg.compute_dtype
-    x = params["embed"][tokens].to(cdt)
+    x = llama.embed(params, tokens, cfg)
     sin, cos = rope_angles(tokens.shape[1], cfg.head_dim, cfg.rope_theta,
                            cdt, x.device)
     layers = {k: w.unbind(0) for k, w in params["layers"].items()}
@@ -213,3 +313,26 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
     ce = llama.chunked_ce(x, head, targets, batch.get("loss_mask"),
                           cfg.loss_chunk)
     return ce + cfg.router_aux_coef * aux
+
+
+def sharding_rules(pipeline: bool = False) -> ShardingRules:
+    """JAX's rules (``ray_tpu/models/moe.py:219-235``): Llama's, plus the
+    experts over ``ep``, their ff dim over ``tp`` and model dim over
+    ``fsdp``; the router's model dim over fsdp."""
+    if pipeline:
+        raise NotImplementedError(
+            "pipeline parallelism for the MoE family is not implemented")
+    return ShardingRules([
+        (r"embed$", P("tp", "fsdp")),
+        (r"lm_head$", P("fsdp", "tp")),
+        (r"layers/w[qkv]$", P(None, "fsdp", "tp")),
+        (r"layers/wo$", P(None, "tp", "fsdp")),
+        (r"layers/router$", P(None, "fsdp", None)),
+        (r"layers/e_(gate|up)$", P(None, "ep", "fsdp", "tp")),
+        (r"layers/e_down$", P(None, "ep", "tp", "fsdp")),
+        (r"layers/.*norm", P(None)),
+        (r"norm", P()),
+    ])
+
+
+data_rules = llama.data_rules

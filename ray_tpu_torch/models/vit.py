@@ -12,8 +12,13 @@ softmax), as JAX's einsum (``vit.py:130-133``) is: it reaches no Pallas
 kernel there, so it launches no flash kernel here. The MLP's GELU is
 the tanh approximation, ``jax.nn.gelu``'s default. With ``cfg.remat``
 and grad enabled each block runs under ``torch.utils.checkpoint``, as
-JAX's ``jax.checkpoint`` over the scan body. The mesh ``sharding_rules``
-and ``data_rules`` are not ported yet.
+JAX's ``jax.checkpoint`` over the scan body.
+
+On a mesh (``sharding_rules``, ``data_rules``) the params and batch are
+DTensors: the patch embedding and head run under DTensor propagation
+with their weights gathered over fsdp, and each block's attention and
+MLP run on the rank's blocks (``sharding.rows_map``: rows over dp and
+fsdp, heads and ff columns over tp), as the Llama family's do.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models.llama import _unflatten
+from ray_tpu_torch.parallel import sharding
+from ray_tpu_torch.parallel.sharding import P, ShardingRules
 
 Params = Dict[str, object]
 
@@ -103,9 +110,15 @@ def init_params(cfg: ViTConfig, *, generator: torch.Generator,
     matrices normal / sqrt(fan_in), ``pos`` normal * 0.02, the cls token,
     biases and LN shifts zero, LN scales one; stored in ``dtype``
     (default: ``cfg.param_dtype``)."""
-    device = resolve_device(device)
-    dtype = dtype or cfg.param_dtype
-    flat = {}
+    return _unflatten(dict(init_leaves(cfg, generator=generator,
+                                       device=resolve_device(device),
+                                       dtype=dtype or cfg.param_dtype)))
+
+
+def init_leaves(cfg: ViTConfig, *, generator: torch.Generator,
+                device: torch.device, dtype: torch.dtype):
+    """``init_params``' leaves one at a time, as (flat name, tensor) in
+    ``cfg.param_shapes()`` order."""
     for name, shape in cfg.param_shapes().items():
         leaf = name.rsplit("/", 1)[-1]
         if leaf in _FAN_IN or leaf == "pos":
@@ -113,12 +126,11 @@ def init_params(cfg: ViTConfig, *, generator: torch.Generator,
                             device=device)
             fan_in = shape[-2] if leaf in _FAN_IN else None
             x.mul_(0.02 if fan_in is None else 1.0 / math.sqrt(fan_in))
-            flat[name] = x.to(dtype)
+            yield name, x.to(dtype)
         elif leaf in ("ln1", "ln2", "final_ln"):
-            flat[name] = torch.ones(shape, dtype=dtype, device=device)
+            yield name, torch.ones(shape, dtype=dtype, device=device)
         else:
-            flat[name] = torch.zeros(shape, dtype=dtype, device=device)
-    return _unflatten(flat)
+            yield name, torch.zeros(shape, dtype=dtype, device=device)
 
 
 def _ln(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
@@ -139,23 +151,65 @@ def patchify(images: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     return x.reshape(B, n * n, cfg.patch_dim)
 
 
+ATTN_KEYS = ("ln1", "ln1_b", "wq", "wk", "wv", "wo")
+MLP_KEYS = ("ln2", "ln2_b", "w_up", "b_up", "w_down")
+
+
+def _attention_out(cfg: ViTConfig, x: torch.Tensor,
+                   lp: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """What pre-LN attention adds to the residual stream (on a rank's
+    blocks, its heads' share); ``lp`` in the compute dtype."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    h = _ln(x, lp["ln1"], lp["ln1_b"], cfg.norm_eps)
+    q = (h @ lp["wq"]).reshape(B, S, -1, hd).transpose(1, 2)
+    k = (h @ lp["wk"]).reshape(B, S, -1, hd).transpose(1, 2)
+    v = (h @ lp["wv"]).reshape(B, S, -1, hd).transpose(1, 2)
+    att = (q @ k.transpose(-1, -2)) / math.sqrt(hd)       # [B, h, S, S]
+    att = torch.softmax(att.float(), dim=-1).to(x.dtype)  # bidirectional
+    out = (att @ v).transpose(1, 2).reshape(B, S, -1)
+    return out @ lp["wo"]
+
+
+def _mlp_out(cfg: ViTConfig, x: torch.Tensor,
+             lp: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The pre-LN GELU MLP's output before its last bias (on a rank's
+    blocks, its ff columns' share)."""
+    h = _ln(x, lp["ln2"], lp["ln2_b"], cfg.norm_eps)
+    h = F.gelu(h @ lp["w_up"] + lp["b_up"], approximate="tanh")
+    return h @ lp["w_down"]
+
+
+def _tp_split(w, dim: int):
+    """A replicated DTensor split over tp along ``dim`` (a local slice,
+    no collective): ``b_up`` must match its matmul's ff columns."""
+    from torch.distributed.tensor import Shard
+
+    names = w.device_mesh.mesh_dim_names
+    if "tp" not in names:
+        return w
+    places = list(w.placements)
+    places[names.index("tp")] = Shard(dim)
+    return w.redistribute(w.device_mesh, places)
+
+
 def _block(cfg: ViTConfig, x: torch.Tensor,
            lp: Dict[str, torch.Tensor]) -> torch.Tensor:
     cd = cfg.compute_dtype
-    lp = {k: w.to(cd) for k, w in lp.items()}
-    B, S, d = x.shape
-    hd = cfg.head_dim
-    h = _ln(x, lp["ln1"], lp["ln1_b"], cfg.norm_eps)
-    q = (h @ lp["wq"]).reshape(B, S, cfg.n_heads, hd).transpose(1, 2)
-    k = (h @ lp["wk"]).reshape(B, S, cfg.n_heads, hd).transpose(1, 2)
-    v = (h @ lp["wv"]).reshape(B, S, cfg.n_heads, hd).transpose(1, 2)
-    att = (q @ k.transpose(-1, -2)) / math.sqrt(hd)       # [B, h, S, S]
-    att = torch.softmax(att.float(), dim=-1).to(x.dtype)  # bidirectional
-    out = (att @ v).transpose(1, 2).reshape(B, S, d)
-    x = x + out @ lp["wo"]
-    h = _ln(x, lp["ln2"], lp["ln2_b"], cfg.norm_eps)
-    h = F.gelu(h @ lp["w_up"] + lp["b_up"], approximate="tanh")
-    return x + (h @ lp["w_down"] + lp["b_down"])
+    if not sharding.is_sharded(x):
+        lp = {k: w.to(cd) for k, w in lp.items()}
+        x = x + _attention_out(cfg, x, lp)
+        return x + (_mlp_out(cfg, x, lp) + lp["b_down"])
+    lp = {k: sharding.gather_fsdp(w.to(cd)) for k, w in lp.items()}
+    lp["b_up"] = _tp_split(lp["b_up"], 0)
+
+    def on_blocks(fn, keys):
+        local = lambda x, *ws: fn(cfg, x, dict(zip(keys, ws)))
+        return sharding.rows_map(local, x, tuple(lp[k] for k in keys))
+
+    x = sharding.residual_add(x, on_blocks(_attention_out, ATTN_KEYS))
+    return sharding.residual_add(x, on_blocks(_mlp_out, MLP_KEYS)
+                                 + lp["b_down"])
 
 
 def forward(params: Params, images: torch.Tensor,
@@ -163,7 +217,8 @@ def forward(params: Params, images: torch.Tensor,
     """[B, H, W, C] float images -> [B, num_classes] fp32 logits."""
     cd = cfg.compute_dtype
     x = patchify(images.to(cd), cfg)
-    x = x @ params["patch_proj"].to(cd) + params["patch_bias"].to(cd)
+    proj = sharding.gather_fsdp(params["patch_proj"].to(cd))
+    x = x @ proj + params["patch_bias"].to(cd)
     B = x.shape[0]
     cls = params["cls"].to(cd).expand(B, 1, cfg.d_model)
     x = torch.cat([cls, x], dim=1) + params["pos"].to(cd)
@@ -178,7 +233,8 @@ def forward(params: Params, images: torch.Tensor,
     x = _ln(x.float(), params["final_ln"], params["final_ln_b"],
             cfg.norm_eps)
     cls_out = x[:, 0]
-    return cls_out @ params["head"].float() + params["head_b"].float()
+    head = sharding.gather_fsdp(params["head"].float())
+    return cls_out @ head + params["head_b"].float()
 
 
 def cls_loss(params: Params, batch: Dict[str, torch.Tensor],
@@ -188,3 +244,22 @@ def cls_loss(params: Params, batch: Dict[str, torch.Tensor],
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, batch["labels"].long()[:, None])[:, 0]
     return nll.mean()
+
+
+def sharding_rules() -> ShardingRules:
+    """JAX's layout over (dp, fsdp, tp) (``ray_tpu/models/vit.py:175-190``):
+    attention and MLP matrices with their contracting and output dims on
+    (fsdp, tp); vectors replicated."""
+    return ShardingRules([
+        (r"patch_proj$", P("fsdp", "tp")),
+        (r"head$", P("fsdp", "tp")),
+        (r"layers/w[qkv]$", P(None, "fsdp", "tp")),
+        (r"layers/wo$", P(None, "tp", "fsdp")),
+        (r"layers/w_up$", P(None, "fsdp", "tp")),
+        (r"layers/w_down$", P(None, "tp", "fsdp")),
+        (r".*", P()),
+    ])
+
+
+def data_rules() -> ShardingRules:
+    return ShardingRules([(r".*", P(("dp", "fsdp")))])

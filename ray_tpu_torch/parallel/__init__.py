@@ -1,1 +1,1 @@
-"""Training steps (one device; the mesh and sharding come later)."""
+"""Training steps, device meshes, partition rules and the sharding plan."""

@@ -16,8 +16,16 @@ iteration use; both optimizers share one moment update (``_adam_apply``).
 Unlike JAX, which donates the buffers to a pure function, the step updates
 params and optimizer state in place and returns the same objects: at the
 1b preset that saves a 4.4 GB copy of the fp32 params (and 8.8 GB of
-moments) a step. The mesh, ``Plan``, ``shard_batch``, ``auto_mesh`` and
-1f1b are not ported yet (ROADMAP.md, Queue 1).
+moments) a step.
+
+On a mesh (``mesh=`` or ``plan=``) params and moments are DTensors placed
+by the family's rules (``init_sharded_state``), each batch is placed by
+the plan (its rows over dp and fsdp), and the same loss runs on them, as
+JAX's runs under GSPMD (the models' docstrings say how). Each gradient is
+redistributed to its param's placements (the fsdp reduce-scatter where
+autograd left it partial), the global-norm clip sums squares across the
+shards, and the moment update runs on each rank's local blocks, which
+share one placement. 1f1b is not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -32,6 +40,10 @@ import torch
 
 from ray_tpu_torch._device import DeviceLike, check_params_on, resolve_device
 from ray_tpu_torch.models import llama
+from ray_tpu_torch.parallel import sharding
+from ray_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+from ray_tpu_torch.parallel.plan import (Plan, compile_plan, compile_step,
+                                         placement_plan)
 from ray_tpu_torch.util import step_profiler
 
 Batch = Dict[str, torch.Tensor]
@@ -60,11 +72,56 @@ def _leaves(params) -> Dict[str, torch.Tensor]:
     return flat
 
 
+def _zeros_f32(t: torch.Tensor) -> torch.Tensor:
+    """fp32 zeros placed as ``t`` (a DTensor's made from its local block:
+    no strategy search)."""
+    if not sharding.is_sharded(t):
+        return torch.zeros_like(t, dtype=torch.float32)
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(
+        torch.zeros_like(t.to_local(), dtype=torch.float32), t.device_mesh,
+        t.placements, run_check=False, shape=t.shape, stride=t.stride())
+
+
 def _adam_init(params) -> dict:
     leaves = _leaves(params)
-    zeros = lambda: {k: torch.zeros_like(t, dtype=torch.float32)
-                     for k, t in leaves.items()}
+    zeros = lambda: {k: _zeros_f32(t) for k, t in leaves.items()}
     return {"count": 0, "mu": zeros(), "nu": zeros()}
+
+
+def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``optax.global_norm``: the 2-norm over every leaf, as torch's
+    ``get_total_norm`` computes it (each leaf's norm, then the norm of
+    those). A DTensor leaf (Shard or Replicate, never Partial) takes its
+    block's norm, squared and summed over the mesh dims that shard it (a
+    replicated dim holds the same block on each rank and counts once):
+    one all-reduce per placement. On one rank the result is
+    ``get_total_norm``'s to the bit (sqrt(x * x) == x in IEEE
+    arithmetic)."""
+    vals = list(grads.values())
+    if not any(sharding.is_sharded(g) for g in vals):
+        return torch.nn.utils.get_total_norm(vals)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    norms = list(torch._foreach_norm([_local(g) for g in vals]))
+    groups: Dict[Tuple, list] = {}
+    for i, g in enumerate(vals):
+        if not sharding.is_sharded(g):
+            continue
+        if any(p.is_partial() for p in g.placements):
+            raise ValueError(f"a partial gradient ({g.placements}) has no "
+                             f"norm of its own: redistribute it first")
+        if any(p.is_shard() for p in g.placements):
+            key = (g.device_mesh, tuple(Partial() if p.is_shard() else
+                                        Replicate() for p in g.placements))
+            groups.setdefault(key, []).append(i)
+    for (mesh, places), idx in groups.items():
+        sq = torch.stack([norms[i] for i in idx]).square()
+        total = DTensor.from_local(sq, mesh, places).full_tensor().sqrt()
+        for j, i in enumerate(idx):
+            norms[i] = total[j]
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 def _clip_scale(grads: Dict[str, torch.Tensor], max_norm: float
@@ -72,8 +129,14 @@ def _clip_scale(grads: Dict[str, torch.Tensor], max_norm: float
     """(global norm, scale): ``optax.clip_by_global_norm``'s factor,
     max_norm / norm when the norm is at least ``max_norm``, else 1. A
     device tensor: no host read."""
-    norm = torch.nn.utils.get_total_norm(list(grads.values()))
+    norm = global_norm(grads)
     return norm, torch.where(norm < max_norm, 1.0, max_norm / norm)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local block (its storage: in-place ops update it), a
+    plain tensor itself."""
+    return t.to_local() if sharding.is_sharded(t) else t
 
 
 @torch.no_grad()
@@ -88,9 +151,12 @@ def _adam_apply(params, grads: Dict[str, torch.Tensor], state: dict, *,
     ``weight_decay`` * param, then the param moves by -lr times it."""
     count = state["count"] + 1
     bc1, bc2 = 1.0 - b1 ** count, 1.0 - b2 ** count
+    # a param, its gradient and moments share one placement, so the
+    # update is elementwise on each rank's blocks
     for name, p in _leaves(params).items():
-        g = grads[name] if scale is None else grads[name].mul_(scale)
-        m, v = state["mu"][name], state["nu"][name]
+        p, g = _local(p), _local(grads[name])
+        g = g if scale is None else g.mul_(scale)
+        m, v = _local(state["mu"][name]), _local(state["nu"][name])
         m.mul_(b1).add_(g, alpha=1.0 - b1)
         v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
         u = (m / bc1).div_((v / bc2).sqrt_().add_(eps))
@@ -168,8 +234,7 @@ class Adam:
         global norm of ``grads`` (before clipping, when clipped). ``grads``
         is consumed."""
         if self.grad_clip is None:
-            norm, clip = torch.nn.utils.get_total_norm(
-                list(grads.values())), None
+            norm, clip = global_norm(grads), None
         else:
             norm, clip = _clip_scale(grads, self.grad_clip)
         _adam_apply(params, grads, state, lr=self.lr, b1=B1, b2=ADAM_B2,
@@ -214,6 +279,35 @@ def init_state(cfg: llama.LlamaConfig, optimizer: AdamW, *,
     return params, optimizer.init(params)
 
 
+def init_sharded_state(cfg: llama.LlamaConfig, mesh, optimizer: AdamW, *,
+                       generator: torch.Generator,
+                       rules: Optional[sharding.ShardingRules] = None
+                       ) -> Tuple[llama.Params, dict]:
+    """fp32 master params of ``cfg``'s family placed by its sharding rules
+    (or ``rules``) on ``mesh``, and the optimizer's zero state placed
+    alike. The leaves are drawn one at a time from ``generator`` (on the
+    mesh's device, seeded the same on every rank: every rank draws each
+    whole leaf, keeps its block and drops the rest before the next), so
+    no rank ever holds the whole tree. The values are ``init_state``'s
+    for the same generator."""
+    from ray_tpu_torch.parallel.mesh import _check_device_type
+
+    _check_device_type(mesh.device_type)
+    fam = model_family(cfg)
+    rules = rules or fam.sharding_rules()
+    cmesh = sharding.compute_mesh(mesh)
+    device = sharding._mesh_device(cmesh)
+    placed = {}
+    for name, leaf in fam.init_leaves(cfg, generator=generator,
+                                      device=device, dtype=torch.float32):
+        placed[name] = sharding.distribute(
+            leaf, cmesh, sharding.placements(rules.spec_for(name), cmesh,
+                                             leaf.ndim))
+        del leaf
+    params = fam._unflatten(placed)
+    return params, optimizer.init(params)
+
+
 def _to_device(batch: Batch, device: torch.device) -> Batch:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
@@ -245,20 +339,72 @@ def value_and_grad(fn: Callable, params, has_aux: bool = False):
 
 def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW,
                     loss_fn: Optional[Callable] = None,
-                    device: DeviceLike = None) -> Callable:
+                    device: DeviceLike = None, *, mesh=None,
+                    plan: Optional[Plan] = None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, {"loss",
     "grad_norm"}), params and state updated in place (the same objects come
     back). ``batch`` holds tokens [B, S+1] (numpy or tensors; moved to the
     device). ``grad_norm`` is the global norm before clipping. The metrics
     are 0-d tensors on the device: reading them waits for the step.
-    ``loss_fn`` defaults to the family's ``lm_loss``."""
-    step = _step_fn(cfg, optimizer, loss_fn, resolve_device(device))
+    ``loss_fn`` defaults to the family's ``lm_loss``.
+
+    With ``mesh`` (or ``plan``) the step runs through the sharding plan
+    (``compile_plan(cfg, mesh)`` unless given) on DTensor params and
+    state (``init_sharded_state``); each rank passes the same global
+    batch and keeps its rows; the metrics come back as plain tensors
+    holding the global values, on every rank."""
+    step = _step_fn(cfg, optimizer, loss_fn, device, mesh, plan)
     return _instrumented(step, cfg)
 
 
+def _plan_for(cfg, mesh, plan: Optional[Plan], device: DeviceLike
+              ) -> Optional[Plan]:
+    if mesh is None and plan is None:
+        return None
+    if device is not None:
+        raise ValueError("pass a mesh (or plan) or a device, not both: a "
+                         "mesh decides its own device")
+    return plan if plan is not None else compile_plan(cfg, mesh)
+
+
+def _sharded_step_fn(cfg, optimizer: AdamW, loss_fn: Optional[Callable],
+                     plan: Plan) -> Callable:
+    """The uninstrumented single step on a mesh. The family's own loss
+    pins the state to the plan's placements, as JAX's pjit does; a custom
+    ``loss_fn`` may train params the rules do not describe, so its state
+    keeps the placements it comes with."""
+    custom = loss_fn is not None
+    loss_fn = loss_fn or model_family(cfg).lm_loss
+
+    def step(params, opt_state, batch):
+        batch = plan.place_batch(batch)
+        loss, grads = value_and_grad(lambda p: loss_fn(p, batch, cfg),
+                                     params)
+        leaves = _leaves(params)
+        grads = {k: g if g.placements == leaves[k].placements
+                 else g.redistribute(leaves[k].device_mesh,
+                                     leaves[k].placements)
+                 for k, g in grads.items()}
+        gnorm = optimizer.update(params, grads, opt_state)
+        return params, opt_state, {"loss": loss.full_tensor(),
+                                   "grad_norm": gnorm}
+
+    pinned = {}
+    if not custom:
+        params_pl, opt_pl = plan.state_shardings(optimizer)
+        pinned = {"in_shardings": (params_pl, opt_pl, None),
+                  "out_shardings": (params_pl, opt_pl, None)}
+    return compile_step(step, plan, **pinned)
+
+
 def _step_fn(cfg, optimizer: AdamW, loss_fn: Optional[Callable],
-             device: torch.device) -> Callable:
+             device: DeviceLike, mesh=None,
+             plan: Optional[Plan] = None) -> Callable:
     """The uninstrumented single step of ``make_train_step``."""
+    plan = _plan_for(cfg, mesh, plan, device)
+    if plan is not None:
+        return _sharded_step_fn(cfg, optimizer, loss_fn, plan)
+    device = resolve_device(device)
     loss_fn = loss_fn or model_family(cfg).lm_loss
 
     def step(params, opt_state, batch):
@@ -274,17 +420,20 @@ def _step_fn(cfg, optimizer: AdamW, loss_fn: Optional[Callable],
 
 def make_multi_step(cfg: llama.LlamaConfig, optimizer: AdamW, n_steps: int,
                     loss_fn: Optional[Callable] = None,
-                    device: DeviceLike = None) -> Callable:
+                    device: DeviceLike = None, *, mesh=None,
+                    plan: Optional[Plan] = None) -> Callable:
     """K train steps over a stacked batch: (params, opt_state, batches) ->
     (params, opt_state, metrics) with each leaf of ``batches`` [K, ...] and
     each metric [K]. JAX fuses the K steps into one ``lax.scan`` program;
     here they are a loop of ``make_train_step``'s step, with no host read
-    between them."""
+    between them. ``mesh``/``plan`` as for ``make_train_step``; a stacked
+    batch placed by ``plan.place_batch(..., stacked=True)`` is sliced per
+    step where it lies."""
     if not supports_multi_step(cfg):
         raise NotImplementedError("multi-step over the 1f1b schedule is "
                                   "unsupported; use single-step "
                                   "(StepDriver degrades automatically)")
-    step = _step_fn(cfg, optimizer, loss_fn, resolve_device(device))
+    step = _step_fn(cfg, optimizer, loss_fn, device, mesh, plan)
 
     def steps(params, opt_state, batches):
         for k, v in batches.items():
@@ -300,6 +449,30 @@ def make_multi_step(cfg: llama.LlamaConfig, optimizer: AdamW, n_steps: int,
                                    for k in per_step[0]}
 
     return _instrumented(steps, cfg, stacked=True, steps_per_launch=n_steps)
+
+
+def shard_batch(batch: Batch, mesh, stacked: bool = False) -> Batch:
+    """Place a host batch on the mesh (the per-mesh cached plan's
+    ``place_batch``): the batch dim over (dp, fsdp); ``stacked`` batches
+    [K, B, ...] keep the step axis replicated."""
+    return placement_plan(mesh).place_batch(batch, stacked=stacked)
+
+
+def auto_mesh(n_devices: int, ranks=None, *, tp: Optional[int] = None,
+              sp: int = 1, pp: int = 1, dp: int = 1, ep: int = 1,
+              device_type: str = "cuda") -> Tuple[object, MeshConfig]:
+    """JAX's layout for n devices: fsdp-dominant, with a tp=min(4, n)
+    inner axis when n allows; sp/pp/ep carve off their axes."""
+    if tp is None:
+        tp = 1
+        for cand in (4, 2):
+            if (n_devices % (cand * sp * pp * dp * ep) == 0
+                    and n_devices >= cand * 2):
+                tp = cand
+                break
+    cfg = MeshConfig.for_devices(n_devices, tp=tp, sp=sp, pp=pp, dp=dp,
+                                 ep=ep)
+    return make_mesh(cfg, ranks, device_type=device_type), cfg
 
 
 def _batch_tokens(batch, stacked: bool = False) -> Tuple[int, int]:

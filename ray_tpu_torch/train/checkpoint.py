@@ -18,6 +18,20 @@ so the step loop never waits on serialization; the completion fence
 A save writes into a temporary directory renamed into place at the end,
 so a reader never sees a half-written tree.
 
+Sharded trees (DTensor leaves, ``parallel/sharding.py``): every rank of
+the mesh calls ``save_pytree``, and each writes only the blocks it owns
+(its local block, where its coordinate on every replicated mesh dim is
+0), one file per block named by its offsets; the index lists every block
+of each leaf with its offset and shape. The ranks meet at barriers on a
+gloo group of their own (so an async writer thread never shares a
+communicator with the step loop's collectives); rank 0 writes the index
+and renames the directory. A restore reads, for each leaf, only the
+blocks that overlap the rank's target block: into the same placements,
+other ones (``load_pytree(name, shardings, mesh=...)``), or, without
+``shardings``, the whole tree in one process. No rank writes or reads a
+whole tree unless it asks for one. The ranks must share the checkpoint's
+filesystem.
+
 The hazard JAX does not have: JAX donates the step's buffers and makes
 new ones, while the port's step updates params and moments IN PLACE. So
 a non-blocking save first snapshots every tensor with a device copy,
@@ -46,6 +60,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
+from ray_tpu_torch.parallel import sharding
 
 _INDEX = "index.json"
 _STAGE_BYTES = 64 << 20   # each of the writer's two pinned staging buffers
@@ -81,12 +96,108 @@ def _flatten(tree: Any, path: Tuple[str, ...] = ()
         tree = torch.from_numpy(tree)
     if isinstance(tree, torch.Tensor):
         name = "/".join(path)
-        return ({"tensor": name, "dtype": str(tree.dtype).removeprefix(
-            "torch."), "shape": list(tree.shape)}, [(name, tree)])
+        node = {"tensor": name, "dtype": str(tree.dtype).removeprefix(
+            "torch."), "shape": list(tree.shape)}
+        if sharding.is_sharded(tree):
+            node["blocks"] = _blocks(name, tree)
+        return node, [(name, tree)]
     if tree is None or isinstance(tree, (bool, int, float, str)):
         return {"value": tree}, []
     raise TypeError(f"cannot checkpoint a {type(tree).__name__} at "
                     f"{'/'.join(path)!r}")
+
+
+def _owned(t) -> bool:
+    """Whether this rank writes its block of DTensor ``t``: its coordinate
+    is 0 on every mesh dim that replicates ``t``."""
+    coord = t.device_mesh.get_coordinate()
+    return all(c == 0 for c, p in zip(coord, t.placements)
+               if not p.is_shard())
+
+
+def _block_file(name: str, offset) -> str:
+    return f"{name}@{'_'.join(map(str, offset)) or 'scalar'}.bin"
+
+
+def _blocks(name: str, t) -> List[Dict[str, Any]]:
+    """Every distinct block of DTensor ``t`` (offset, shape, file), the
+    same list on every rank."""
+    if any(p.is_partial() for p in t.placements):
+        raise ValueError(f"{name!r} is partial ({t.placements}): reduce it "
+                         f"before saving")
+    mesh = t.device_mesh
+    seen, out = set(), []
+    for coord in np.ndindex(*mesh.shape):
+        off, shape = sharding.block_box(t.shape, mesh.shape, t.placements,
+                                        coord)
+        if off not in seen and all(shape):
+            seen.add(off)
+            out.append({"offset": list(off), "shape": list(shape),
+                        "file": _block_file(name, off)})
+    return out
+
+
+_SAME_SIZE = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
+
+
+def _read_region(path: str, node: Dict[str, Any], box) -> torch.Tensor:
+    """The part ``box`` ((offset, shape), global coordinates) of a saved
+    leaf, read from the blocks that overlap it (memory-mapped: only the
+    overlap is read)."""
+    dtype = _DTYPES[node["dtype"]]
+    off, shape = box
+    out = torch.empty(shape, dtype=dtype)
+    if "blocks" not in node:
+        blocks = [{"offset": [0] * len(node["shape"]),
+                   "shape": node["shape"], "file": node["tensor"] + ".bin"}]
+    else:
+        blocks = node["blocks"]
+    item = torch.empty((), dtype=dtype).element_size()
+    for b in blocks:
+        lo = [max(o, bo) for o, bo in zip(off, b["offset"])]
+        hi = [min(o + n, bo + bn) for o, n, bo, bn in
+              zip(off, shape, b["offset"], b["shape"])]
+        if any(h <= low for h, low in zip(hi, lo)):
+            continue
+        raw = np.memmap(os.path.join(path, b["file"]), mode="r",
+                        dtype=_SAME_SIZE[item], shape=tuple(b["shape"]))
+        src = tuple(slice(low - bo, h - bo)
+                    for low, h, bo in zip(lo, hi, b["offset"]))
+        dst = tuple(slice(low - o, h - o) for low, h, o in zip(lo, hi, off))
+        out[dst] = torch.from_numpy(np.array(raw[src])).view(dtype)
+        del raw
+    return out
+
+
+def _barrier_group():
+    """A gloo group over every rank, for the sharded save's barriers; made
+    once, collectively (every rank calls its first sharded save in the
+    same order)."""
+    global _GLOO
+    if _GLOO is None:
+        import torch.distributed as dist
+
+        _GLOO = dist.new_group(backend="gloo")
+    return _GLOO
+
+
+_GLOO = None
+
+
+def _placements_by_name(tree: Any, path: Tuple[str, ...] = ()
+                        ) -> Dict[str, tuple]:
+    """A tree of placements (tuples of ``Placement``) by flat name."""
+    from torch.distributed.tensor import Placement
+
+    if isinstance(tree, tuple) and tree and all(
+            isinstance(p, Placement) for p in tree):
+        return {"/".join(path): tree}
+    items = tree.items() if isinstance(tree, dict) else (
+        enumerate(tree) if isinstance(tree, (list, tuple)) else ())
+    out: Dict[str, tuple] = {}
+    for k, v in items:
+        out.update(_placements_by_name(v, path + (str(k),)))
+    return out
 
 
 def _unflatten(node: Dict[str, Any], load) -> Any:
@@ -111,6 +222,8 @@ def _snapshot(tree: Any) -> Any:
         return type(tree)(_snapshot(v) for v in tree)
     if isinstance(tree, torch.Tensor):
         with torch.no_grad():
+            if sharding.is_sharded(tree):
+                return tree.detach().clone()
             return tree.detach().clone(memory_format=torch.contiguous_format)
     if isinstance(tree, np.ndarray):
         return tree.copy()
@@ -202,28 +315,20 @@ class Checkpoint:
         names = [n for n, _ in leaves]
         if len(set(names)) != len(names):
             raise ValueError(f"two leaves share a flat name: {names}")
+        io = {"ready": ready}
+        if any(sharding.is_sharded(t) for _, t in leaves):
+            nbytes = self._save_sharded(structure, leaves, name, io)
+            self.last_save = {"bytes": nbytes,
+                              "write_s": time.perf_counter() - t0}
+            return
         final = os.path.join(self.path, name)
         tmp = tempfile.mkdtemp(prefix=f".{name}.tmp-", dir=self.path)
-        side = stage = None
         nbytes = 0
         try:
             for flat, t in leaves:
                 path = os.path.join(tmp, flat + ".bin")
                 os.makedirs(os.path.dirname(path), exist_ok=True)
-                if not t.is_cuda:
-                    nbytes += _write_host_leaf(path, t)
-                    continue
-                if side is None:
-                    torch.cuda.set_device(t.device)
-                    side = torch.cuda.Stream(t.device)
-                    if ready is not None:
-                        side.wait_event(ready)
-                    else:   # a blocking save of live tensors
-                        side.wait_stream(torch.cuda.current_stream(t.device))
-                    stage = [torch.empty(_STAGE_BYTES, dtype=torch.uint8,
-                                         pin_memory=True) for _ in range(2)]
-                t.record_stream(side)
-                nbytes += _write_cuda_leaf(path, t, side, stage)
+                nbytes += self._write_leaf(path, t, io)
             with open(os.path.join(tmp, _INDEX), "w") as f:
                 json.dump({"format": _FORMAT, "tree": structure}, f)
             shutil.rmtree(final, ignore_errors=True)
@@ -233,6 +338,89 @@ class Checkpoint:
             raise
         self.last_save = {"bytes": nbytes,
                           "write_s": time.perf_counter() - t0}
+
+    def _save_sharded(self, structure, leaves, name: str,
+                      io: Dict[str, Any]) -> int:
+        """Each rank writes the blocks it owns into a directory every rank
+        names alike; rank 0 writes the index and renames it into place
+        once all have written (barriers on a gloo group)."""
+        import torch.distributed as dist
+
+        for flat, t in leaves:
+            if (sharding.is_sharded(t)
+                    and t.device_mesh.size() != dist.get_world_size()):
+                raise ValueError(f"{flat!r} lies on a mesh of "
+                                 f"{t.device_mesh.size()} of the "
+                                 f"{dist.get_world_size()} ranks: a sharded "
+                                 f"save needs a mesh over every rank")
+        group = _barrier_group()
+        rank = dist.get_rank()
+        final = os.path.join(self.path, name)
+        tmp = os.path.join(self.path, f".{name}.tmp-sharded")
+        if rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+        dist.barrier(group=group)
+        nbytes = 0
+        ok = True
+        try:
+            for flat, t in leaves:
+                if sharding.is_sharded(t):
+                    if not _owned(t):
+                        continue
+                    local = t.to_local()
+                    off = sharding.block_box(
+                        t.shape, t.device_mesh.shape, t.placements,
+                        t.device_mesh.get_coordinate())[0]
+                    if not local.numel():
+                        continue
+                    path = os.path.join(tmp, _block_file(flat, off))
+                elif rank == 0:
+                    local, path = t, os.path.join(tmp, flat + ".bin")
+                else:
+                    continue
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                nbytes += self._write_leaf(path, local, io)
+        except BaseException:
+            ok = False
+            raise
+        finally:
+            # every rank reaches the barrier, so a failed writer cannot
+            # leave the others waiting; rank 0 installs only a whole tree
+            flags = torch.tensor([int(ok)])
+            dist.all_reduce(flags, op=dist.ReduceOp.MIN, group=group)
+            if rank == 0 and int(flags):
+                with open(os.path.join(tmp, _INDEX), "w") as f:
+                    json.dump({"format": _FORMAT, "tree": structure}, f)
+                shutil.rmtree(final, ignore_errors=True)
+                os.replace(tmp, final)
+            dist.barrier(group=group)
+        if not int(flags):
+            raise RuntimeError(f"another rank failed to write its blocks of "
+                               f"{final}")
+        return nbytes
+
+    @staticmethod
+    def _write_leaf(path: str, t: torch.Tensor, io: Dict[str, Any]) -> int:
+        """One tensor's bytes to ``path``: a host tensor directly, a CUDA
+        one through two pinned staging buffers on a side stream, made on
+        the save's first CUDA leaf (``io``, one per save) to wait for
+        ``io["ready"]`` where given, else for the work queued so far on
+        the caller's stream."""
+        if not t.is_cuda:
+            return _write_host_leaf(path, t)
+        if io.get("side") is None:
+            torch.cuda.set_device(t.device)
+            side = torch.cuda.Stream(t.device)
+            if io.get("ready") is not None:
+                side.wait_event(io["ready"])
+            else:   # a blocking save of live tensors
+                side.wait_stream(torch.cuda.current_stream(t.device))
+            io["side"] = side
+            io["stage"] = [torch.empty(_STAGE_BYTES, dtype=torch.uint8,
+                                       pin_memory=True) for _ in range(2)]
+        t.record_stream(io["side"])
+        return _write_cuda_leaf(path, t, io["side"], io["stage"])
 
     def save_pytree(self, tree: Any, name: str = "state", *,
                     blocking: Optional[bool] = None) -> None:
@@ -256,6 +444,8 @@ class Checkpoint:
         snap = _snapshot(tree)
         ready = None
         _, leaves = _flatten(snap)
+        if any(sharding.is_sharded(t) for _, t in leaves):
+            _barrier_group()   # collectively, here, not on the writer
         cuda = next((t for _, t in leaves if t.is_cuda), None)
         if cuda is not None:
             ready = torch.cuda.Event()
@@ -293,25 +483,57 @@ class Checkpoint:
                 self._pending_errors = []
                 raise err
 
-    def load_pytree(self, name: str = "state", *,
-                    device: DeviceLike = None) -> Any:
-        """The tree saved under ``name``, its tensors on ``device``
-        (``cuda`` unless asked), after any pending save of it."""
-        device = resolve_device(device)
+    def load_pytree(self, name: str = "state", shardings: Any = None, *,
+                    mesh=None, device: DeviceLike = None) -> Any:
+        """The tree saved under ``name``, after any pending save of it.
+
+        Without ``shardings`` every tensor comes back whole, on ``device``
+        (``cuda`` unless asked), a sharded save's blocks assembled. With
+        ``shardings`` (a tree of DTensor placements on ``mesh``'s compute
+        mesh shaped like the saved tree, or a ``ShardingRules`` applied by
+        path) each rank of ``mesh`` reads only the parts of the saved
+        blocks that overlap its own block, whatever placements the tree
+        was saved under, and gets DTensors; a leaf ``shardings`` leaves
+        out (``None``) comes back whole."""
+        if shardings is None:
+            device = resolve_device(device)
+        elif mesh is None or device is not None:
+            raise ValueError("a sharded load takes the mesh (its device is "
+                             "the mesh's), not a device")
         self.wait_pending()
         path = os.path.join(self.path, name)
         with open(os.path.join(path, _INDEX)) as f:
             index = json.load(f)
         if index.get("format") != _FORMAT:
             raise ValueError(f"{path} is not a {_FORMAT} checkpoint")
+        if shardings is None:
+            return _unflatten(index["tree"], lambda node: _read_region(
+                path, node, ((0,) * len(node["shape"]), node["shape"])
+            ).to(device))
+        from torch.distributed.tensor import DTensor
+
+        cmesh = sharding.compute_mesh(mesh)
+        local_device = sharding._mesh_device(cmesh)
+        if isinstance(shardings, sharding.ShardingRules):
+            rules = shardings
+            place_of = lambda node: sharding.placements(
+                rules.spec_for(node["tensor"]), cmesh, len(node["shape"]))
+        else:
+            flat = _placements_by_name(shardings)
+            place_of = lambda node: flat.get(node["tensor"])
 
         def load(node):
-            raw = np.fromfile(os.path.join(path, node["tensor"] + ".bin"),
-                              dtype=np.uint8)
-            dtype = _DTYPES[node["dtype"]]
-            t = (torch.from_numpy(raw).view(dtype) if raw.size
-                 else torch.empty(0, dtype=dtype))
-            return t.reshape(node["shape"]).to(device)
+            places = place_of(node)
+            shape = tuple(node["shape"])
+            if places is None:
+                return _read_region(path, node, ((0,) * len(shape), shape)
+                                    ).to(local_device)
+            box = sharding.block_box(shape, cmesh.shape, places,
+                                     cmesh.get_coordinate())
+            local = _read_region(path, node, box).to(local_device)
+            return DTensor.from_local(
+                local, cmesh, places, run_check=False, shape=shape,
+                stride=sharding._contiguous_strides(shape))
 
         return _unflatten(index["tree"], load)
 

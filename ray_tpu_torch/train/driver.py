@@ -22,10 +22,13 @@ One driver owns the whole step path:
   recorder's watcher thread waits for, never a synchronize on the step
   path. ``RT_TRAIN_RECORDER=0`` reduces this to one predicate per launch.
 
-The mesh and the sharding ``Plan`` are not ported: the driver runs on one
-device and refuses ``mesh=`` and ``plan=``. JAX's ``steps_per_launch=None``
-reads the train session's ``FastPathConfig``; the port has no session, so
-the knob is passed here and defaults to 1.
+With ``mesh=`` (or ``plan=``) the driver compiles the sharding plan
+from the mesh, as JAX's does, runs the steps on the DTensor state of
+``init_sharded_state``, and places each batch, or each stacked K-batch,
+through ``plan.place_batch``: every rank feeds the same global batches
+and keeps its rows. JAX's ``steps_per_launch=None`` reads the train
+session's ``FastPathConfig``; the port has no session, so the knob is
+passed here and defaults to 1.
 """
 
 from __future__ import annotations
@@ -78,14 +81,17 @@ class StepDriver:
                  plan: Any = None, device: DeviceLike = None,
                  hooks: Optional[TrainHooks] = None,
                  sinks: Optional[Sinks] = None):
-        if mesh is not None or plan is not None:
-            raise NotImplementedError(
-                "the port's StepDriver runs on one device: the mesh and "
-                "the sharding Plan are not ported yet")
         if steps_per_launch < 1:
             raise ValueError(
                 f"steps_per_launch must be >= 1, got {steps_per_launch}")
-        self.device = resolve_device(device)
+        if device is not None and (mesh is not None or plan is not None):
+            raise ValueError("pass a mesh (or plan) or a device, not both: "
+                             "a mesh decides its own device")
+        if mesh is not None and plan is None:
+            plan = ts.compile_plan(cfg, mesh)
+        self.plan = plan
+        self.device = plan.device if plan is not None \
+            else resolve_device(device)
         self.requested_steps_per_launch = steps_per_launch
         self.fused = steps_per_launch > 1 and ts.supports_multi_step(cfg)
         self.steps_per_launch = steps_per_launch if self.fused else 1
@@ -96,11 +102,12 @@ class StepDriver:
         # path stamps it, so single-step drivers carry a dormant recorder
         self.recorder: Optional[TrainRecorder] = TrainRecorder(sinks=sinks)
         self._fpt_cache: Dict[int, float] = {}
-        self._single = ts.make_train_step(cfg, optimizer, loss_fn,
-                                          self.device)
+        where = {"plan": plan} if plan is not None else {
+            "device": self.device}
+        self._single = ts.make_train_step(cfg, optimizer, loss_fn, **where)
         self._multi = (ts.make_multi_step(cfg, optimizer,
                                           self.steps_per_launch, loss_fn,
-                                          self.device)
+                                          **where)
                        if self.fused else None)
         self.launches = 0
         self.steps = 0
@@ -143,9 +150,13 @@ class StepDriver:
         }
 
     # ---- batch plumbing -----------------------------------------------------
-    def _place(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    def _place(self, batch: Dict[str, Any],
+               stacked: bool = False) -> Dict[str, torch.Tensor]:
         """The batch's leaves on the driver's device (a no-op for leaves
-        already there, as the device feed's)."""
+        already there, as the device feed's); on a mesh, this rank's rows
+        of them (``plan.place_batch``)."""
+        if self.plan is not None:
+            return self.plan.place_batch(batch, stacked=stacked)
         return ts._to_device(batch, self.device)
 
     @staticmethod
@@ -255,7 +266,7 @@ class StepDriver:
                     data_ready_t = time.time()  # stacked batch in hand
                     tokens, seq_len, shape = self._launch_meta(batch)
                 t_h2d = time.perf_counter()
-                placed = self._place(batch)
+                placed = self._place(batch, stacked=True)
                 h2d_s = time.perf_counter() - t_h2d
                 self.host_s += time.perf_counter() - t0
                 n_exec = self.compile_count() if rec is not None else 0

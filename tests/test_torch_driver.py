@@ -221,7 +221,12 @@ def test_compile_count_stays_one_once_warm():
 def test_driver_refusals_match_jax():
     """A feed stacking more batches per group than the driver fuses would
     silently single-step everything: both drivers refuse it, with JAX's
-    messages; the port also refuses a mesh or a plan."""
+    messages. The port takes a mesh or a plan, but refuses a device beside
+    one, and a layout that needs JAX's shard_map mode (not ported)."""
+    from types import SimpleNamespace
+
+    from ray_tpu_torch.parallel.plan import PlanError
+
     jcfg, tcfg, jp = _setup("llama")
     jopt, topt = jts.default_optimizer(**OPT), tts.default_optimizer(**OPT)
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg,
@@ -237,8 +242,11 @@ def test_driver_refusals_match_jax():
         with pytest.raises(ValueError, match="exceeds"):
             drv.run(params, state, iter([{"tokens": toks}]), stacked=True)
         assert drv.steps == drv.launches == 0
-    for kw in ({"mesh": object()}, {"plan": object()}):
-        with pytest.raises(NotImplementedError, match="one device"):
+    sp_mesh = SimpleNamespace(mesh_dim_names=("sp", "fsdp"), shape=(2, 2))
+    with pytest.raises(PlanError, match="item 9"):
+        tdriver.StepDriver(tcfg, topt, mesh=sp_mesh)
+    for kw in ({"mesh": sp_mesh}, {"plan": object()}):
+        with pytest.raises(ValueError, match="not both"):
             tdriver.StepDriver(tcfg, topt, device="cpu", **kw)
 
 

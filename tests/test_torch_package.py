@@ -4,11 +4,13 @@ launches nothing for a CPU tensor."""
 
 import ast
 import pathlib
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
+from ray_tpu_torch.collective import bootstrap_torch_distributed
 from ray_tpu_torch.data.iterator import iter_device_batches
 from ray_tpu_torch.models import generate as TG
 from ray_tpu_torch.models import llama as tllama
@@ -18,6 +20,7 @@ from ray_tpu_torch.models.convert import params_from_jax
 from ray_tpu_torch.models.serving import ContinuousBatcher, ContinuousEngine
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import flash as tflash
+from ray_tpu_torch.parallel import mesh as tmesh
 from ray_tpu_torch.parallel import train_step as tts
 from ray_tpu_torch.rl import anakin as tanakin
 from ray_tpu_torch.rl.rlhf import pipeline as tpipe
@@ -72,7 +75,13 @@ def test_port_imports_no_jax_and_no_ray_tpu():
             "ray_tpu_torch/rl/algorithms/ppo.py",
             "ray_tpu_torch/rl/rlhf/__init__.py",
             "ray_tpu_torch/rl/rlhf/models.py",
-            "ray_tpu_torch/rl/rlhf/pipeline.py", "chip_smoke.py"} <= names
+            "ray_tpu_torch/rl/rlhf/pipeline.py",
+            "ray_tpu_torch/parallel/mesh.py",
+            "ray_tpu_torch/parallel/sharding.py",
+            "ray_tpu_torch/parallel/plan.py",
+            "ray_tpu_torch/collective/__init__.py",
+            "ray_tpu_torch/collective/collective.py",
+            "ray_tpu_torch/collective/rendezvous.py", "chip_smoke.py"} <= names
     bad = [(f.relative_to(ROOT), mod) for f in files
            for mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -137,6 +146,18 @@ def test_entry_points_default_to_cuda():
         tanakin.AnakinRunner()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tvit.init_params(tvit.PRESETS["debug"], generator=torch.Generator())
+    # the mesh, sharded init and the process group: cuda and nccl
+    # unless the caller asks for the CPU and gloo
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmesh.make_mesh(tmesh.MeshConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tts.auto_mesh(1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tts.init_sharded_state(cfg, SimpleNamespace(device_type="cuda"),
+                               tts.default_optimizer(),
+                               generator=torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bootstrap_torch_distributed(1, 0, init_method="file:///unused")
     # and asking for the CPU with params elsewhere is refused, not moved
     with pytest.raises(ValueError, match="params are on"):
         ContinuousBatcher(params, cfg, device="meta")

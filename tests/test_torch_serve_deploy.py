@@ -140,13 +140,18 @@ def _deploy_and_check(serve, ray_tpu, metrics_text):
     prompts = [rng.integers(0, 256, size=s).astype(np.int64)
                for s in (5, 8, 6, 7, 4, 9)]
     wants = [12, 5, 9, 1, 15, 7]
-    outs = {}
+    outs, errors, done_s = {}, {}, {}
+    t0 = time.monotonic()
 
     def consume(i, delay):
         time.sleep(delay)
-        gen = h.remote({"tokens": prompts[i].tolist(),
-                        "max_new_tokens": wants[i]}).result(timeout=120)
-        outs[i] = [int(t) for t in gen]
+        try:
+            gen = h.remote({"tokens": prompts[i].tolist(),
+                            "max_new_tokens": wants[i]}).result(timeout=120)
+            outs[i] = [int(t) for t in gen]
+        except BaseException as e:   # noqa: BLE001 — reported below
+            errors[i] = repr(e)
+        done_s[i] = round(time.monotonic() - t0, 2)
 
     threads = [threading.Thread(target=consume, args=(i, 0.08 * i))
                for i in range(len(prompts))]
@@ -154,7 +159,10 @@ def _deploy_and_check(serve, ray_tpu, metrics_text):
         t.start()
     for t in threads:
         t.join(timeout=180)
-    assert not any(t.is_alive() for t in threads)
+    # a failure names what each request did and when it ended
+    report = f"errors {errors}, seconds to each end {done_s}"
+    assert not any(t.is_alive() for t in threads), report
+    assert not errors, report
 
     # the replica's params: the preset from the same seeded generator
     cfg = dataclasses.replace(tllama.PRESETS["debug"], attn_impl="flash")
@@ -164,7 +172,7 @@ def _deploy_and_check(serve, ray_tpu, metrics_text):
     for i, (p, n) in enumerate(zip(prompts, wants)):
         want = TG.generate(params, p[None], cfg, max_new_tokens=n,
                            device="cpu")[0].tolist()
-        assert outs.get(i) == want, i
+        assert outs.get(i) == want, (i, report)
 
     # occupancy telemetry: the engine ticked with rows busy and the
     # cb:* histograms and the slots gauge recorded it
