@@ -15,7 +15,9 @@ process per source, all at once), then:
    7b and at the 1b preset's GQA group, one 7b row over 4,096 keys, the 1b
    train step, 7b's d 128 at s 2048, speculative decode's 5-row verify at
    7b, the 8x410m MoE preset's decode, prefill and train step, the RLHF
-   update's 255-row forward at 1b) and at
+   update's 255-row forward at 1b, a pipeline's one-row microbatch of the
+   1b train batch, and the ring's 512-row chunks of it at offsets 512 and
+   -512) and at
    small cases (head_dim 16 and
    64, unaligned s, GQA, non-causal, a fully masked offset, a dead decode
    row beside rows that see only the first key chunk, float32, cuts at the
@@ -26,11 +28,15 @@ process per source, all at once), then:
    time, torch SDPA's time as a yardstick (with the same mask, and with
    ``is_causal`` where the mask is the plain causal square), and the
    least time the card could take (FLOPs at 989 TFLOP/s bf16 or 67
-   TFLOP/s fp32, bytes at 3.35 TB/s);
+   TFLOP/s fp32, bytes at 3.35 TB/s), which no time may be under;
 3. the two backward kernels (dq, dkv) against their plain versions the
    same way, at the 1b train step's shape (b 4, s 2048, 32/4 heads, d 64),
    at 8x410m's (16/16 heads of 64), at the RLHF update's (b 8, s 255,
-   32/4 heads of 64), at 7b's d 128 and at small cases cut at the edges of their tiles, with
+   32/4 heads of 64), at 7b's d 128, at a pipeline's one-row microbatch
+   of the 1b train batch, at two ring chunks of it handed their queries'
+   global (o, lse) (one fully masked: zero shares; one fully seen) and
+   at small cases cut at
+   the edges of their tiles, with
    torch SDPA's backward as the yardstick at the training shapes, two
    launches checked to give the same bits, each record with the kernels'
    tiling, and the dkv grid's modelled scheduling tail;
@@ -145,10 +151,25 @@ process per source, all at once), then:
    bit-equal, each op of the collective group API once on a one-member
    NCCL group, and the process group torn down; mesh and plain step ms
    (the DTensor host cost), the device busy share, peak memory and MFU;
-17. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
+17. sequence and pipeline parallelism on one card (``seqpipe``): the
+   ring's loops (``context.ring_forward`` and ``ring_backward``) with
+   the 1b train shape's sequence in 4 chunk-ranks rotated in memory, 16
+   ``tcb`` and 16 ``flash_vjp_chunk`` calls against one whole-sequence
+   forward and backward (``TOL``, ``BWD_REL_TOL``), the 6 dead chunks
+   zero, both forms timed; then 1b at full width and depth through a
+   one-rank NCCL mesh: 8 ``attn_impl="ring"`` and 3 ``"ulysses"`` steps
+   against plain flash steps from the same init (``MESH_REL_TOL``), 4
+   GPipe and 4 1F1B steps (``pipeline_axis="pp"``, pp 1, 4
+   microbatches) against them (``BWD_REL_TOL``: the microbatches' GEMMs
+   round differently), 4 batches of 1F1B through ``StepDriver
+   (steps_per_launch=4)``, which runs single steps bit-equal to the 1F1B
+   loop; launches exactly as ``seqpipe_launches`` gives, step ms (each
+   median leaves out step 1, which warms up), busy share, MFU and peak
+   memory of each against the plain step;
+18. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
 
 Each path (serve, serve_kv, llm, spec, moe, train, driver, moe_train,
-rlhf, mesh)
+rlhf, mesh, seqpipe)
 zeroes every kernel's launch count
 just before it runs and reads them just after; a kernel of the paths that
 was not launched fails the run (the float32 CUDA-core forward is on no
@@ -342,6 +363,15 @@ KERNEL_CASES = {
     # the RLHF update's forward at 1b: 8 sequences of 128 + 128 tokens,
     # the last one dropped (255 = 128 + 128 - 1 rows: a ragged tile)
     "rlhf_1b_s255": (8, 255, 255, 32, 4, 64, True, 0, "bfloat16"),
+    # a pipeline microbatch of the 1b train batch (4 microbatches of 1 row)
+    "pipe_microbatch_1b_b1_s2048": (1, 2048, 2048, 32, 4, 64, True, 0,
+                                    "bfloat16"),
+    # ring chunks of the 1b train shape cut in 4: one whose keys the
+    # queries all see, and one they see none of
+    "ring_chunk_1b_offset512": (TRAIN_BATCH, 512, 512, 32, 4, 64, True, 512,
+                                "bfloat16"),
+    "ring_dead_chunk_1b": (TRAIN_BATCH, 512, 512, 32, 4, 64, True, -512,
+                           "bfloat16"),
 }
 # the launch each path makes most: train and prefill on the tensor-core
 # kernel, decode on the split-KV one; float32 (on neither path) on the
@@ -353,19 +383,22 @@ LIBRARY_CASES = ("prefill_7b", "cached_prefill_7b", "decode_7b_b8",
                  "decode_dead_and_first_chunk_d64", "fp32_d128_decode",
                  "train_1b_d64_gqa", "train_7b_d128", "verify_7b_k4",
                  "decode_8x410m_b8", "prefill_8x410m", "train_8x410m",
-                 "rlhf_1b_s255")
+                 "rlhf_1b_s255", "pipe_microbatch_1b_b1_s2048",
+                 "ring_chunk_1b_offset512")
 # the crossover cases: bf16, d 128, s_k 1024, the rows at the end of the
 # keys, one row below and at fwd_tiling's threshold
 THRESHOLD_SHAPE = (8, 1024, 32, 32, 128)   # b, sk, hq, hkv, d
 # plain versions that hold GBs of fp32 scores: timed eagerly (device-bound
 # there), not captured five times into one CUDA graph
-EAGER_PLAIN_CASES = ("train_1b_d64_gqa", "train_7b_d128", "train_8x410m")
+EAGER_PLAIN_CASES = ("train_1b_d64_gqa", "train_7b_d128", "train_8x410m",
+                     "pipe_microbatch_1b_b1_s2048")
 
 
 def work(torch, b, sq, sk, hq, hkv, d, causal, offs, dtype):
     """(flops, bytes) the function needs on this run's inputs: every
-    visible (query, key) pair costs 4*d FLOPs (QK and PV); q, o, lse and
-    the offsets move once, and K/V once for each key some row sees."""
+    visible (query, key) pair costs 4*d FLOPs (QK and PV); o, lse and the
+    offsets move once, q once for each row that sees a key, and K/V once
+    for each key some row sees."""
     es = torch.finfo(dtype).bits // 8
     if causal:
         rows = torch.arange(sq, device=offs.device)[None, :] + offs[:, None]
@@ -374,8 +407,9 @@ def work(torch, b, sq, sk, hq, hkv, d, causal, offs, dtype):
         vis = torch.full((b, sq), sk, device=offs.device)
     pairs = int(vis.sum()) * hq
     keys = int(vis.amax(dim=1).sum())
+    live = int((vis > 0).sum())         # query rows that see a key
     flops = 4.0 * d * pairs
-    nbytes = (2 * b * sq * hq * d * es + b * hq * sq * 4 + b * 4
+    nbytes = ((live + b * sq) * hq * d * es + b * hq * sq * 4 + b * 4
               + 2 * keys * hkv * d * es)
     return flops, nbytes
 
@@ -498,6 +532,10 @@ def kernel_phase(torch, flash):
                   f" lse err {err_lse} (tol {lse_tol}), bitwise {bitwise},"
                   f" vs split plain {split_err} (tol {SPLIT_TOL}),"
                   f" launched {ran}, want 2 on {tiling['kernel']}")
+        # a time under the least the card could take means a wrong bound
+        check(kernel_ms >= rec["bound_ms"],
+              f"flash_fwd {name}: {kernel_ms} ms under its bound "
+              f"{rec['bound_ms']}")
         del q, k, v, o, lse, ro, rlse, qt, kt, vt
         torch.cuda.empty_cache()
     return results
@@ -537,16 +575,44 @@ BWD_CASES = {
     "train_8x410m": (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 16, 64, True, 0,
                      "bfloat16"),
     "rlhf_1b_s255": (8, 255, 255, 32, 4, 64, True, 0, "bfloat16"),
+    # ring steps' chunks at the 1b train shape cut in 4, each with the
+    # global (o, lse) of its queries (``ring_global``): one after the
+    # queries' own chunk, fully masked at its offset while the lse is
+    # finite, so every share must be zero; one before it, every key seen
+    "ring_dead_chunk_global_lse": (TRAIN_BATCH, 512, 512, 32, 4, 64, True,
+                                   -512, "bfloat16"),
+    "ring_live_chunk_global_lse": (TRAIN_BATCH, 512, 512, 32, 4, 64, True,
+                                   512, "bfloat16"),
+    # a pipeline microbatch of the 1b train batch (4 microbatches of 1 row)
+    "pipe_microbatch_1b_b1_s2048": (1, 2048, 2048, 32, 4, 64, True, 0,
+                                    "bfloat16"),
 }
+# cases whose (o, lse) are their queries' global ones, not their own
+GLOBAL_LSE_CASES = ("ring_dead_chunk_global_lse",
+                    "ring_live_chunk_global_lse")
 BWD_HEADLINE_CASE = "train_1b_d64_gqa"   # the shape the train path gives
 BWD_LIBRARY_CASES = ("train_1b_d64_gqa", "train_7b_d128", "train_8x410m",
-                     "rlhf_1b_s255")
+                     "rlhf_1b_s255", "pipe_microbatch_1b_b1_s2048")
+
+
+def ring_global(torch, flash, q, k, v, off, rnd, causal):
+    """(o, lse) of the queries ``q`` of a two-chunk ring whose other chunk
+    is (``k``, ``v``) at the relative offset ``off`` (+-sq): over both
+    chunks in position order, the queries' own chunk drawn by ``rnd`` and
+    seen on its diagonal."""
+    k2, v2 = rnd(*k.shape), rnd(*v.shape)
+    keys, vals = ((k2, k), (v2, v)) if off < 0 else ((k, k2), (v, v2))
+    return flash.flash_fwd(q, torch.cat(keys, 1), torch.cat(vals, 1),
+                           max(off, 0), causal=causal)
 
 
 def bwd_work(torch, b, sq, sk, hq, hkv, d, causal, offs, dtype):
     """(pairs, bytes) of the backward on this run's inputs: visible (query,
     key) pairs over all q heads, and the bytes of each input read once and
-    each output written once, per kernel and for the whole backward."""
+    each output written once, per kernel and for the whole backward. A
+    query row that sees no key needs none of its inputs but what its
+    outputs are made of: dq writes its zero dq and its delta (read from
+    o and do); dkv and the whole backward need nothing of it."""
     es = torch.finfo(dtype).bits // 8
     if causal:
         rows = torch.arange(sq, device=offs.device)[None, :] + offs[:, None]
@@ -555,14 +621,17 @@ def bwd_work(torch, b, sq, sk, hq, hkv, d, causal, offs, dtype):
         vis = torch.full((b, sq), sk, device=offs.device)
     pairs = int(vis.sum()) * hq
     keys = int(vis.amax(dim=1).sum())          # keys some row sees
-    qrow = b * sq * hq * d * es                # q, o, do, dq: one each
+    live = int((vis > 0).sum())                # query rows that see a key
+    qrow = b * sq * hq * d * es                # o, do, dq: one each
+    qlive = live * hq * d * es                 # q, o or do of live rows
     kv = keys * hkv * d * es                   # k or v as read
     kv_out = b * sk * hkv * d * es             # dk or dv as written
-    row_f32 = b * hq * sq * 4                  # lse, delta
+    row_f32 = b * hq * sq * 4                  # delta as written
+    live_f32 = live * hq * 4                   # lse or delta as read
     return pairs, {
-        "dq": 3 * qrow + 2 * kv + row_f32 + qrow + row_f32,
-        "dkv": 2 * qrow + 2 * kv + 2 * row_f32 + 2 * kv_out,
-        "bwd": 3 * qrow + 2 * kv + row_f32 + qrow + 2 * kv_out,
+        "dq": qlive + 2 * qrow + 2 * kv + live_f32 + qrow + row_f32,
+        "dkv": 2 * qlive + 2 * kv + 2 * live_f32 + 2 * kv_out,
+        "bwd": 3 * qlive + 2 * kv + live_f32 + qrow + 2 * kv_out,
     }
 
 
@@ -607,7 +676,9 @@ def bwd_kernel_phase(torch, flash):
                 if isinstance(off, list) else
                 torch.full((b,), off, dtype=torch.int32, device=DEV))
         kw = dict(causal=causal)
-        o, lse = flash.flash_fwd(q, k, v, offs, **kw)
+        o, lse = (ring_global(torch, flash, q, k, v, off, rnd, causal)
+                  if name in GLOBAL_LSE_CASES else
+                  flash.flash_fwd(q, k, v, offs, **kw))
         dq, delta = flash.flash_dq(q, k, v, o, lse, do, offs, **kw)
         dk, dv = flash.flash_dkv(q, k, v, lse, delta, do, offs, **kw)
         rdq, rdelta = flash.flash_dq_reference(q, k, v, o, lse, do, offs,
@@ -637,7 +708,7 @@ def bwd_kernel_phase(torch, flash):
         tol = BWD_REL_TOL[dt]
         ok = (all(r <= tol for r in rel.values()) and bitwise
               and all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv)))
-        if off == -1000:
+        if bool((offs <= -sq).all()):     # no row sees a key
             ok = ok and all(bool((x == 0).all()) for x in (dq, dk, dv))
         big = name in EAGER_PLAIN_CASES
         iters = 10 if big else 20
@@ -711,6 +782,9 @@ def bwd_kernel_phase(torch, flash):
         emit(rec)
         results[name] = rec
         check(ok, f"flash backward {name}: rel err {rel} (tol {tol})")
+        # a time under the least the card could take means a wrong bound
+        check(all(ms[p] >= bounds[p]["bound_ms"] for p in ("dq", "dkv")),
+              f"flash backward {name}: {ms} ms under its bounds {bounds}")
         del q, k, v, do, o, lse, dq, dk, dv, rdq, rdk, rdv, delta, rdelta
         torch.cuda.empty_cache()
     return results
@@ -3267,9 +3341,334 @@ def mesh_phase(torch, np, tllama, tts, tflops, flash, smi):
     return launches
 
 
+# ------------------------------------------------------------ phase 17
+
+# the ring's arithmetic at the 1b train shape: the sequence in this many
+# chunk-"ranks", rotated in memory on one card
+SEQPIPE_CHUNKS = 4
+SEQPIPE_RING_STEPS, SEQPIPE_ULYSSES_STEPS, SEQPIPE_PIPE_STEPS = 8, 3, 4
+SEQPIPE_MICROBATCHES, SEQPIPE_DRIVER_K = 4, 4
+
+
+def seqpipe_launches(schedule, m, n_layers):
+    """(tcb, dq, dkv) launches of one train step of a one-stage (pp 1)
+    pipeline or a one-rank sp group, flash attention with remat. gpipe
+    (remat: each stage's inputs only): m forwards without gradients, then
+    in the backward each microbatch's stage again with them and its
+    backward. 1f1b: no separate forward on the last (here the only)
+    stage, whose output goes nowhere; each backward's recompute and its
+    backward. ring, ulysses, flash: each block's forward, its remat
+    recompute, its backward."""
+    if schedule == "gpipe":
+        return 2 * m * n_layers, m * n_layers, m * n_layers
+    if schedule == "1f1b":
+        return m * n_layers, m * n_layers, m * n_layers
+    return 2 * n_layers, n_layers, n_layers
+
+
+def launch_delta(flash, before):
+    """Each counter's launches since ``before`` (a ``read_launches``)."""
+    return {k: n - before[k] for k, n in read_launches(flash).items()}
+
+
+def ring_arithmetic(torch, flash, context):
+    """The port's ring loops (``context.ring_forward``, ``ring_backward``)
+    at the 1b train shape on one card, every rank of a ring of
+    ``SEQPIPE_CHUNKS`` held in memory (``context.memory_rotation``):
+    against one whole-sequence ``flash_fwd`` and one ``flash_dq`` +
+    ``flash_dkv``; the dead chunks' shares checked zero, the launches
+    counted exactly, both forms timed (eager, CUDA events)."""
+    from ray_tpu_torch.ops.attention import NEG_INF
+
+    n = SEQPIPE_CHUNKS
+    b, s, hq, hkv, d = TRAIN_BATCH, TRAIN_SEQ, 32, 4, 64
+    g = torch.Generator(device=DEV).manual_seed(2024)
+    rnd = lambda *shape: torch.randn(shape, generator=g,
+                                     device=DEV).to(torch.bfloat16)
+    q, k, v, do = rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), \
+        rnd(b, s, hq, d)
+    chunks = lambda x, dim=1: [c.contiguous() for c in x.chunk(n, dim)]
+    qs, ks, vs, dos = chunks(q), chunks(k), chunks(v), chunks(do)
+    ranks = list(range(n))
+    rot = context.memory_rotation
+    o, lse = flash.flash_fwd(q, k, v, 0, causal=True)
+    dq, delta = flash.flash_dq(q, k, v, o, lse, do, 0, causal=True)
+    dk, dv = flash.flash_dkv(q, k, v, lse, delta, do, 0, causal=True)
+
+    # the loops' own kernel calls, recorded where a chunk is fully masked
+    dead = {"fwd": [], "bwd": []}
+    fwd_fn, vjp_fn = context.flash_attention_with_lse, context.flash_vjp_chunk
+
+    def fwd_rec(q_, k_, v_, **kw):
+        o_, lse_ = fwd_fn(q_, k_, v_, **kw)
+        if kw["q_offset"] <= -q_.shape[1]:
+            dead["fwd"].append([bool((o_ == 0).all()),
+                                bool((lse_ <= NEG_INF / 2).all()),
+                                bool((lse_ == NEG_INF).all())])
+        return o_, lse_
+
+    def vjp_rec(*args, **kw):
+        out = vjp_fn(*args, **kw)
+        if kw["q_offset"] <= -args[0].shape[1]:
+            dead["bwd"].append([bool((x == 0).all()) for x in out])
+        return out
+
+    zero_launches(flash)
+    context.flash_attention_with_lse, context.flash_vjp_chunk = \
+        fwd_rec, vjp_rec
+    try:
+        outs = context.ring_forward(qs, ks, vs, ranks, n, rot)
+        fwd_launches = read_launches(flash)
+        grads = context.ring_backward(
+            qs, ks, vs, [x[0] for x in outs], dos, [x[1] for x in outs],
+            ranks, n, rot)
+        torch.cuda.synchronize()
+    finally:
+        context.flash_attention_with_lse, context.flash_vjp_chunk = \
+            fwd_fn, vjp_fn
+    launches = read_launches(flash)
+    ring_o = torch.cat([x[0] for x in outs], 1)
+    ring_lse = torch.cat([x[1] for x in outs], 2)
+    atol, rtol, lse_tol = TOL["bfloat16"]
+    o_gap = float((ring_o.float() - o.float()).abs().max())
+    o_ok = bool(torch.allclose(ring_o.float(), o.float(), atol=atol,
+                               rtol=rtol))
+    lse_gap = float((ring_lse - lse).abs().max())
+    rel = {}
+    for name, i, want in (("dq", 0, dq), ("dk", 1, dk), ("dv", 2, dv)):
+        got = torch.cat([x[i] for x in grads], 1)
+        rel[name] = float((got.float() - want.float()).abs().max()
+                          / want.float().abs().max())
+    del outs, grads
+
+    # both forms timed as the ring runs them (eager, with the merges)
+    iters = 10
+    ring_fwd_ms = time_ms(torch, lambda: context.ring_forward(
+        qs, ks, vs, ranks, n, rot), iters)
+    os_, lses = zip(*context.ring_forward(qs, ks, vs, ranks, n, rot))
+    ring_bwd_ms = time_ms(torch, lambda: context.ring_backward(
+        qs, ks, vs, list(os_), dos, list(lses), ranks, n, rot), iters)
+    whole_fwd_ms = time_ms(torch, lambda: flash.flash_fwd(
+        q, k, v, 0, causal=True), iters)
+    whole_bwd_ms = time_ms(torch, lambda: flash.flash_dkv(
+        q, k, v, lse, flash.flash_dq(q, k, v, o, lse, do, 0)[1], do, 0),
+        iters)
+    n_dead = n * (n - 1) // 2
+    rec = {"shape": {"b": b, "s": s, "hq": hq, "hkv": hkv, "d": d,
+                     "chunks": n, "chunk_len": s // n, "dtype": "bfloat16"},
+           "max_abs_gap_o": o_gap, "max_abs_gap_lse": lse_gap,
+           "rel_gap": rel, "tol": {"o": [atol, rtol], "lse": lse_tol,
+                                   "grads": BWD_REL_TOL["bfloat16"]},
+           "dead_chunks": {"fwd": dead["fwd"], "bwd": dead["bwd"]},
+           "launches": {"forward": {k_: fwd_launches[k_] for k_ in (
+               "flash_fwd_tcb", "flash_dq", "flash_dkv")},
+               "backward": {k_: launches[k_] - fwd_launches[k_] for k_ in (
+                   "flash_fwd_tcb", "flash_dq", "flash_dkv")}},
+           "eager_ms": {"ring_forward": ring_fwd_ms,
+                        "whole_forward": whole_fwd_ms,
+                        "ring_backward": ring_bwd_ms,
+                        "whole_backward": whole_bwd_ms}}
+    check(o_ok and lse_gap <= lse_tol and all(
+        r <= BWD_REL_TOL["bfloat16"] for r in rel.values()),
+        f"chunked ring off the whole-sequence kernels: o {o_gap}, lse "
+        f"{lse_gap}, grads {rel}")
+    check(len(dead["fwd"]) == len(dead["bwd"]) == n_dead
+          and all(all(x[:2]) for x in dead["fwd"])
+          and all(all(x) for x in dead["bwd"]),
+          f"dead chunks not zero: {dead}")
+    check(rec["launches"] == {
+        "forward": {"flash_fwd_tcb": n * n, "flash_dq": 0, "flash_dkv": 0},
+        "backward": {"flash_fwd_tcb": 0, "flash_dq": n * n,
+                     "flash_dkv": n * n}},
+        f"ring launches {rec['launches']}, want {n * n} of each kernel")
+    del q, k, v, do, qs, ks, vs, dos, o, lse, dq, dk, dv, os_, lses
+    torch.cuda.empty_cache()
+    return rec
+
+
+def seqpipe_phase(torch, np, tllama, tts, tflops, flash, smi):
+    """Sequence and pipeline parallelism on one card (``seqpipe``): the
+    ring's chunked arithmetic at the 1b train shape
+    (``ring_arithmetic``), then 1b at full width and depth through a
+    one-rank NCCL mesh: ``attn_impl="ring"`` and ``"ulysses"`` against
+    plain flash steps from the same init, ``pipeline_axis="pp"`` (pp 1,
+    4 microbatches) under GPipe and 1F1B against the same plain steps,
+    and 1F1B through ``StepDriver(steps_per_launch=4)``, which degrades
+    to single steps, against the plain 1F1B loop. The launches of the
+    mesh runs (the path's) are counted exactly; the process group is
+    torn down at the end."""
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch import collective as col
+    from ray_tpu_torch.parallel import context
+    from ray_tpu_torch.train.driver import StepDriver
+
+    out = {"phase": "seqpipe", "nvidia_smi": smi,
+           "config": "1b, 22 layers, fp32 params, bf16 compute, attn "
+                     "flash, remat; one-rank mesh",
+           "batch": [TRAIN_BATCH, TRAIN_SEQ + 1]}
+    out["ring_arithmetic"] = ring_arithmetic(torch, flash, context)
+    emit({"phase": "seqpipe_ring_arithmetic", **out["ring_arithmetic"]})
+
+    base = dataclasses.replace(tllama.PRESETS["1b"], attn_impl="flash")
+    L, m = base.n_layers, SEQPIPE_MICROBATCHES
+    pipe = dict(pipeline_axis="pp", pipeline_microbatches=m)
+    cfgs = {"ring": dataclasses.replace(base, attn_impl="ring"),
+            "ulysses": dataclasses.replace(base, attn_impl="ulysses"),
+            "gpipe": dataclasses.replace(base, **pipe),
+            "1f1b": dataclasses.replace(base, pipeline_schedule="1f1b",
+                                        **pipe)}
+    steps = {"ring": SEQPIPE_RING_STEPS, "ulysses": SEQPIPE_ULYSSES_STEPS,
+             "gpipe": SEQPIPE_PIPE_STEPS, "1f1b": SEQPIPE_PIPE_STEPS}
+    opt = tts.default_optimizer(lr=3e-4, warmup_steps=2, total_steps=100)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_seqpipe_")
+    runs = {}
+    try:
+        col.bootstrap_torch_distributed(
+            1, 0, "seqpipe", "nccl" if DEV == "cuda" else "gloo",
+            timeout_s=300, init_method=f"file://{tmp}/store")
+        mesh, _ = tts.auto_mesh(1, device_type=DEV)
+
+        def init(cfg):
+            gen = torch.Generator(device=DEV).manual_seed(0)
+            params, state = tts.init_sharded_state(cfg, mesh, opt,
+                                                   generator=gen)
+            tokens = torch.randint(0, cfg.vocab_size,
+                                   (TRAIN_BATCH, TRAIN_SEQ + 1),
+                                   generator=gen, device=DEV)
+            return params, state, {"tokens": tokens}
+
+        # the reference: plain flash steps from a copy of the same init
+        params, state, batch = init(base)
+        plain = tllama._unflatten({k: v.to_local().clone() for k, v in
+                                   tts._leaves(params).items()})
+        del params, state
+        (_, _, ref_losses, ref_norms, plain_ms,
+         plain_dev_ms) = timed_steps(torch, tts.make_train_step(
+             base, opt, device=DEV), plain, opt.init(plain), batch,
+             SEQPIPE_RING_STEPS)
+        del plain
+        torch.cuda.empty_cache()
+
+        # the path: every mesh run below, counted from zero; each run's own
+        # launches are the counters' change over its steps (a profiled
+        # step after each, for the device busy share, is left out)
+        zero_launches(flash)
+        for name, cfg in cfgs.items():
+            params, state, batch = init(cfg)
+            step = tts.make_train_step(cfg, opt, mesh=mesh)
+            torch.cuda.reset_peak_memory_stats()
+            before = read_launches(flash)
+            (params, state, losses, norms, host_ms,
+             dev_ms) = timed_steps(torch, step, params, state, batch,
+                                   steps[name])
+            runs[name] = {"losses": losses, "grad_norms": norms,
+                          "step_ms": host_ms, "step_event_ms": dev_ms,
+                          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                          "launches": launch_delta(flash, before)}
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                _, _, mm = step(params, state, batch)
+                float(mm["loss"])
+                wall = (time.perf_counter() - t0) * 1e3
+            busy = sum(device_kernel_ms(torch, prof, 1).values())
+            runs[name]["profiled_step"] = {
+                "wall_ms": wall,
+                "device_busy_ms": busy if busy else "not measured",
+                "device_busy_share": busy / wall if busy else
+                "not measured"}
+            del params, state, step, prof
+            torch.cuda.empty_cache()
+        cfg = cfgs["1f1b"]
+        params, state, batch = init(cfg)
+        drv = StepDriver(cfg, opt, mesh=mesh,
+                         steps_per_launch=SEQPIPE_DRIVER_K)
+        drv_metrics = []
+        before = read_launches(flash)
+        params, state, _ = drv.run(params, state,
+                                   iter([batch] * SEQPIPE_DRIVER_K),
+                                   on_launch=drv_metrics.append)
+        torch.cuda.synchronize()
+        runs["1f1b_driver"] = {
+            "losses": flat_losses(drv_metrics),
+            "counts": [drv.steps, drv.launches],
+            "requested_steps_per_launch": drv.requested_steps_per_launch,
+            "steps_per_launch": drv.steps_per_launch, "fused": drv.fused,
+            "launches": launch_delta(flash, before)}
+        drv.recorder.close()
+        del params, state, drv
+        launches = {k: sum(r["launches"][k] for r in runs.values())
+                    for k in runs["ring"]["launches"]}
+    finally:
+        col.clear_rendezvous("seqpipe")
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    rel = lambda a, b: abs(a - b) / abs(b)
+    tokens_per_step, seq = tts._batch_tokens(batch)
+    step_flops = tokens_per_step * tflops.train_flops_per_token(base, seq)
+    med = lambda xs: float(np.median(xs[1:]))     # step 1 warms up
+    for name, r in runs.items():
+        ref = ref_losses[:len(r["losses"])]
+        r["max_rel_gap_vs_plain"] = max(rel(a, b) for a, b in zip(
+            r["losses"], ref))
+        if "grad_norms" in r:
+            r["max_rel_gap_vs_plain"] = max(r["max_rel_gap_vs_plain"], max(
+                rel(a, b) for a, b in zip(r["grad_norms"], ref_norms)))
+            r["bit_equal_to_plain"] = (r["losses"] == ref and r[
+                "grad_norms"] == ref_norms[:len(ref)])
+            r["median_step_ms"] = med(r["step_ms"])
+            r["median_step_event_ms"] = med(r["step_event_ms"])
+            r["mfu"] = tflops.mfu(step_flops, r["median_step_ms"] / 1e3)
+    runs["1f1b_driver"]["bit_equal_to_1f1b_loop"] = (
+        runs["1f1b_driver"]["losses"] == runs["1f1b"]["losses"])
+    out.update({"runs": runs, "plain_losses": ref_losses,
+                "plain_grad_norms": ref_norms, "plain_step_ms": plain_ms,
+                "plain_step_event_ms": plain_dev_ms,
+                "plain_median_step_ms": med(plain_ms),
+                "plain_mfu": tflops.mfu(step_flops, med(plain_ms) / 1e3),
+                "mfu_peak": "989e12 bf16 dense (H100 SXM)",
+                "launches": launches})
+    emit(out)
+    check(abs(ref_losses[0] - np.log(base.vocab_size)) <= FIRST_LOSS_MARGIN,
+          f"first loss {ref_losses[0]} not within {FIRST_LOSS_MARGIN} of "
+          f"ln {base.vocab_size}")
+    for name in ("ring", "ulysses"):
+        check(runs[name]["max_rel_gap_vs_plain"] <= MESH_REL_TOL,
+              f"{name} off the plain step: {runs[name]['max_rel_gap_vs_plain']}"
+              f" (tolerance {MESH_REL_TOL})")
+    for name in ("gpipe", "1f1b"):
+        check(runs[name]["max_rel_gap_vs_plain"] <= BWD_REL_TOL["bfloat16"],
+              f"{name} off the plain step: {runs[name]['max_rel_gap_vs_plain']}"
+              f" (tolerance {BWD_REL_TOL['bfloat16']})")
+    for name, r in runs.items():
+        check(all(np.isfinite(r["losses"])),
+              f"{name}: non-finite losses {r['losses']}")
+    drv = runs["1f1b_driver"]
+    check(drv["bit_equal_to_1f1b_loop"] and drv["counts"] == [
+        SEQPIPE_DRIVER_K, SEQPIPE_DRIVER_K] and not drv["fused"]
+        and drv["steps_per_launch"] == 1,
+        f"1f1b driver: {drv}, loop losses {runs['1f1b']['losses']}")
+    for name, r in runs.items():
+        sched = "1f1b" if name == "1f1b_driver" else name
+        n = len(r["losses"])
+        want = [c * n for c in seqpipe_launches(sched, m, L)]
+        got = [r["launches"][k] for k in ("flash_fwd_tcb", "flash_dq",
+                                          "flash_dkv")]
+        check(got == want and r["launches"]["flash_fwd_dec"] == 0
+              and r["launches"]["flash_fwd_simt"] == 0,
+              f"{name}: launches {r['launches']} in {n} steps, want "
+              f"tcb/dq/dkv {want}")
+    return launches
+
+
 PHASES = ("kernel", "bwd", "integration", "grad", "serve", "llm", "spec",
           "moe", "train", "driver", "moe_train", "rlhf", "anakin", "vit",
-          "mesh")
+          "mesh", "seqpipe")
 
 
 def kernel_entry(name, source, replaces, launches, head, part=None,
@@ -3383,6 +3782,9 @@ def main(argv=None) -> int:
     if "mesh" in only:
         launches["mesh"] = mesh_phase(torch, np, tllama, tts, tflops, flash,
                                       smi)
+    if "seqpipe" in only:
+        launches["seqpipe"] = seqpipe_phase(torch, np, tllama, tts, tflops,
+                                            flash, smi)
     if args.only is not None:
         print(json.dumps({"partial_run": sorted(only)}), flush=True)
         return 0

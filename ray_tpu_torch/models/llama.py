@@ -12,15 +12,21 @@ and casts at each use, as the JAX trainer does.
 
 Attention backends: ``attn_impl="xla"`` runs the plain PyTorch ``mha``;
 ``"flash"`` runs the CUDA flash kernels (their plain versions on the CPU),
-forward and backward.
+forward and backward; ``"ring"`` and ``"ulysses"`` split the sequence over
+the mesh's ``sp`` axis (``parallel/context.py``; they need the ambient
+``mesh_scope`` the train step sets) and attend through the same kernels.
 
 Training: ``lm_loss`` and ``chunked_ce``. With ``cfg.remat`` and grad
 enabled, each decoder block runs under ``torch.utils.checkpoint``
 (non-reentrant): it keeps only the block's input and recomputes the rest
 in backward. JAX's ``jax.checkpoint`` with
 ``dots_with_no_batch_dims_saveable`` keeps the matmul outputs too: a
-different save set, the same values. The pipeline, ring/ulysses and 1f1b
-branches are not ported yet.
+different save set, the same values. Under ring or Ulysses attention the
+recompute runs the block's collectives again (every rank the same ones,
+in the same order). ``pipeline_axis`` splits the layer stack over that
+mesh axis (``parallel/pipeline.py``): GPipe through ``lm_loss``, or with
+``pipeline_schedule="1f1b"`` the interleaved schedule of
+``lm_loss_and_grads_1f1b``, which returns the gradients itself.
 
 On a mesh (``parallel/train_step.py``) the params and the batch are
 DTensors placed by ``sharding_rules`` and ``data_rules``, and the same
@@ -30,18 +36,23 @@ attention and MLP run on the rank's local blocks (``sharding.rows_map``:
 rows over dp and fsdp, heads and ff columns over tp), so the flash
 kernels only ever see plain tensors, and the residual add sums the tp
 shares; the embedding lookup and the loss run under DTensor propagation
-on the vocab-sharded table and head.
+on the vocab-sharded table and head. Under ring or Ulysses attention
+the stream is also split over ``sp`` by sequence between the embedding
+and the final norm (``sharding.split_sequence``): each block runs on its
+rank's chunk with the RoPE positions of that chunk, and the final norm
+and the loss run on the whole sequence again.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import mha
@@ -49,6 +60,9 @@ from ray_tpu_torch.ops.flash import flash_attention
 from ray_tpu_torch.ops.norms import rmsnorm
 from ray_tpu_torch.ops.rope import apply_rope, rope_angles
 from ray_tpu_torch.parallel import sharding
+from ray_tpu_torch.parallel.context import (SP_IMPLS, current_mesh,
+                                            mesh_scope,
+                                            sequence_parallel_attention)
 from ray_tpu_torch.parallel.sharding import P, ShardingRules
 
 Params = Dict[str, object]
@@ -72,8 +86,16 @@ class LlamaConfig:
     # slices, each recomputed in backward, so the full fp32 logits never
     # materialize at once
     loss_chunk: int = 0
-    # "xla" (plain PyTorch mha, the reference) or "flash" (CUDA kernels)
+    # "xla" (plain PyTorch mha, the reference), "flash" (CUDA kernels),
+    # "ring" / "ulysses" (sequence-parallel over the mesh "sp" axis; need
+    # an ambient mesh_scope)
     attn_impl: str = "xla"
+    # Pipeline parallelism: "pp" splits the layer stack over that mesh axis
+    # (not with ring/ulysses). Schedule: "gpipe" (stash grows with M) or
+    # "1f1b" (interleaved manual backward, stash O(P): parallel/pipeline.py)
+    pipeline_axis: Optional[str] = None
+    pipeline_microbatches: int = 4
+    pipeline_schedule: str = "gpipe"
 
     @property
     def head_dim(self) -> int:
@@ -206,13 +228,15 @@ def attend(cfg: LlamaConfig, q: torch.Tensor, k: torch.Tensor,
             f"segment_ids (packed sequences) require attn_impl='xla'; got "
             f"{cfg.attn_impl!r} — failing loudly rather than attending "
             f"across document boundaries")
+    if cfg.attn_impl in SP_IMPLS:
+        return sequence_parallel_attention(q, k, v, impl=cfg.attn_impl,
+                                           causal=True)
     if cfg.attn_impl == "flash":
         return flash_attention(q, k, v, causal=True, q_offset=q_offset)
     if cfg.attn_impl == "xla":
         return mha(q, k, v, causal=True, segment_ids=segment_ids,
                    q_offset=q_offset)
-    raise NotImplementedError(
-        f"attn_impl={cfg.attn_impl!r} is not ported yet (ROADMAP.md)")
+    raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
 
 
 ATTN_KEYS = ("attn_norm", "wq", "wk", "wv", "wo")
@@ -267,12 +291,14 @@ def attention_half(cfg: LlamaConfig, x: torch.Tensor,
                    segment_ids: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
     """Pre-norm attention + residual. On a mesh the attention runs on
-    each rank's [b/(dp*fsdp), s, h/tp, d] blocks, so the flash kernels
-    only see plain tensors; q and kv heads split contiguously by the same
-    tp keep GQA's head map local (``plan.compile_plan`` checks both head
-    counts divide by tp)."""
+    each rank's [b/(dp*fsdp), s, h/tp, d] blocks (s/sp where the stream
+    splits its sequence, with the RoPE tables of the rank's positions),
+    so the flash kernels only see plain tensors; q and kv heads split
+    contiguously by the same tp keep GQA's head map local
+    (``plan.compile_plan`` checks both head counts divide by tp)."""
     if not sharding.is_sharded(x):
         return x + _attention_out(cfg, x, layer, sin, cos, segment_ids)
+    sin, cos = sharding.sequence_block(x, sin, cos)
     fn = lambda x, lw, *seg: _attention_out(cfg, x, lw, sin, cos,
                                             seg[0] if seg else None)
     ids = () if segment_ids is None else (segment_ids,)
@@ -298,6 +324,56 @@ def _block(cfg: LlamaConfig, x: torch.Tensor, layer: Dict[str, torch.Tensor],
     return ffn_half(cfg, x, layer)
 
 
+def _stage_scan(cfg: LlamaConfig, stage_layers: Dict[str, torch.Tensor],
+                h: torch.Tensor, seg: Optional[torch.Tensor]) -> torch.Tensor:
+    """One pipeline stage: this rank's block of layers over ``h`` (plain
+    tensors), the stage body of both schedules. The RoPE tables are made
+    here, as JAX's stage makes them inside its shard_map body. No remat
+    inside: the schedules recompute whole stages."""
+    sin, cos = rope_angles(h.shape[1], cfg.head_dim, cfg.rope_theta,
+                           cfg.compute_dtype, h.device)
+    layers = {k: w.unbind(0) for k, w in stage_layers.items()}
+    for i in range(len(layers["wq"])):
+        h = _block(cfg, h, {k: ws[i] for k, ws in layers.items()}, sin,
+                   cos, seg)
+    return h
+
+
+def _pipeline_mesh(cfg: LlamaConfig, subject: str, what: str):
+    """The ambient mesh a pipeline schedule runs on, with JAX's refusals
+    (in its words for ``subject`` and ``what``): no ring or Ulysses
+    attention inside a pipeline, and a mesh."""
+    if cfg.attn_impl in SP_IMPLS:
+        raise ValueError(f"{subject} incompatible with ring/ulysses "
+                         f"attention (nested shard_map); use attn_impl="
+                         f"'flash' or 'xla'")
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError(f"{what} needs an ambient mesh "
+                         f"(parallel.context.mesh_scope)")
+    return mesh
+
+
+def _pipelined_layers(layers: Dict[str, torch.Tensor], x, cfg: LlamaConfig,
+                      segment_ids) -> torch.Tensor:
+    """The layer stack split over the ``pp`` mesh axis, GPipe-microbatched
+    (``pipeline.pipeline_apply``). The batch rides (dp, fsdp, tp) inside
+    the pipeline: each tp lane runs its own rows through whole stages
+    (stage weights are replicated across tp, as in JAX's layout)."""
+    from ray_tpu_torch.parallel.pipeline import pipeline_apply
+
+    mesh = _pipeline_mesh(cfg, "pipeline_axis is", "pipeline_axis")
+
+    def stage(stage_layers, h, seg=None):
+        return _stage_scan(cfg, stage_layers, h, seg)
+
+    return pipeline_apply(
+        stage, layers, x, mesh, axis_name=cfg.pipeline_axis,
+        num_microbatches=cfg.pipeline_microbatches,
+        batch_axes=(("dp", "fsdp", "tp"),), remat=cfg.remat,
+        extras=segment_ids)
+
+
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
                    segment_ids: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -305,21 +381,45 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     [d, V]), both in the compute dtype."""
     cdt = cfg.compute_dtype
     x = embed(params, tokens, cfg)
-    sin, cos = rope_angles(tokens.shape[1], cfg.head_dim, cfg.rope_theta,
-                           cdt, x.device)
+    if cfg.pipeline_axis is not None:
+        x = _pipelined_layers(params["layers"], x, cfg, segment_ids)
+    else:
+        x = _layers(params, x, cfg, segment_ids)
+    x = rmsnorm(x, params["final_norm"].to(cdt), cfg.norm_eps)
+    return x, lm_head(params, cfg)
+
+
+def remat_context_fn():
+    """``checkpoint``'s ``context_fn`` for a block that may run ring or
+    Ulysses attention: the recompute runs where autograd's engine runs it
+    (a device thread for CUDA tensors), outside this thread's
+    ``mesh_scope``, so it gets the forward's mesh back through its own
+    context."""
+    mesh = current_mesh()
+    if mesh is None:
+        return noop_context_fn
+    return lambda: (contextlib.nullcontext(), mesh_scope(mesh))
+
+
+def _layers(params: Params, x, cfg: LlamaConfig, segment_ids):
+    """The decoder blocks in order, each under remat when training."""
+    sin, cos = rope_angles(x.shape[1], cfg.head_dim, cfg.rope_theta,
+                           cfg.compute_dtype, x.device)
+    if cfg.attn_impl in SP_IMPLS:
+        x = sharding.split_sequence(x)
     # unbind, not w[i]: one stack in backward instead of a full-size zero
     # gradient per layer
     layers = {k: w.unbind(0) for k, w in params["layers"].items()}
     remat = cfg.remat and torch.is_grad_enabled()
+    contexts = remat_context_fn()
     for i in range(cfg.n_layers):
         layer = {k: ws[i] for k, ws in layers.items()}
         if remat:
             x = checkpoint(_block, cfg, x, layer, sin, cos, segment_ids,
-                           use_reentrant=False)
+                           use_reentrant=False, context_fn=contexts)
         else:
             x = _block(cfg, x, layer, sin, cos, segment_ids)
-    x = rmsnorm(x, params["final_norm"].to(cdt), cfg.norm_eps)
-    return x, lm_head(params, cfg)
+    return sharding.gather_sequence(x)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
@@ -340,6 +440,58 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
     x, head = forward_hidden(params, inputs, cfg, batch.get("segment_ids"))
     return chunked_ce(x, head, targets, batch.get("loss_mask"),
                       cfg.loss_chunk)
+
+
+def lm_loss_and_grads_1f1b(params: Params, batch: Dict[str, torch.Tensor],
+                           cfg: LlamaConfig):
+    """(loss, grads) through the interleaved 1F1B pipeline
+    (``pipeline.pipeline_1f1b``), which computes the stages' gradients
+    itself. The embedding lookup is differentiated outside the pipeline
+    (autograd takes the first stage's input cotangents back into the
+    table); the final norm and the head sit inside the last stage's loss,
+    so the backward can start there. ``make_train_step`` picks it for
+    ``cfg.pipeline_schedule == "1f1b"``. The grads are DTensors partial
+    where the schedule leaves them (the step sums them)."""
+    from ray_tpu_torch.parallel.pipeline import pipeline_1f1b
+
+    if cfg.tie_embeddings:
+        raise NotImplementedError(
+            "1f1b needs untied embeddings (the head lives inside the "
+            "pipeline's last stage; the embedding outside it)")
+    mesh = _pipeline_mesh(cfg, "pipeline schedules are", "1f1b")
+    cdt = cfg.compute_dtype
+    tokens = batch["tokens"]
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    table = params["embed"].detach().requires_grad_(True)
+    with torch.enable_grad():
+        x = embed({"embed": table}, inputs, cfg)
+    batch_axes = ("dp", "fsdp", "tp")
+    if sharding.is_sharded(x):
+        x = x.redistribute(x.device_mesh, sharding.placements(
+            P(batch_axes), x.device_mesh, x.ndim))
+
+    def stage_fn(stage_layers, h, seg):
+        return _stage_scan(cfg, stage_layers, h, seg)
+
+    def head_loss_fn(head, y, tgt, msk):
+        y = rmsnorm(y, head["final_norm"].to(cdt), cfg.norm_eps)
+        return chunked_ce(y, head["lm_head"].to(cdt), tgt, msk,
+                          cfg.loss_chunk)
+
+    head = {"final_norm": params["final_norm"],
+            "lm_head": params["lm_head"]}
+    loss, g_layers, g_head, g_x = pipeline_1f1b(
+        stage_fn, head_loss_fn, params["layers"], head, x.detach(), targets,
+        mesh, axis_name=cfg.pipeline_axis,
+        num_microbatches=cfg.pipeline_microbatches, batch_axes=batch_axes,
+        segments=batch.get("segment_ids"), loss_mask=batch.get("loss_mask"))
+    if sharding.is_sharded(x):
+        g_x = g_x.redistribute(x.device_mesh, x.placements)
+    g_embed, = torch.autograd.grad(x, [table], g_x)
+    grads = {"embed": g_embed, "final_norm": g_head["final_norm"],
+             "lm_head": g_head["lm_head"]}
+    grads.update({f"layers/{k}": g for k, g in g_layers.items()})
+    return loss, grads
 
 
 def _nll(x: torch.Tensor, head: torch.Tensor,
@@ -388,12 +540,14 @@ def sharding_rules(pipeline: bool = False) -> ShardingRules:
     (``ray_tpu/models/llama.py:374-412``): the stacked-layer axis
     unsharded, matrices with their contracting and output dims on (fsdp,
     tp), so forward matmuls all-gather over fsdp (ZeRO-3) and reduce over
-    tp; norms replicated. The pipelined layout (layers over ``pp``) waits
-    for the pipeline schedules."""
+    tp; norms replicated. Pipelined (``pipeline``): the layer stack over
+    ``pp`` and every other dim, and the embedding and head, replicated:
+    the pipeline consumes whole stage weights, so they are stored so."""
     if pipeline:
-        raise NotImplementedError(
-            "pipeline sharding rules need the gpipe/1f1b schedules, not "
-            "ported yet (ROADMAP.md Queue 1 item 9)")
+        return ShardingRules([
+            (r"layers/", P("pp")),
+            (r".*", P()),
+        ])
     return ShardingRules([
         (r"embed$", P("tp", "fsdp")),
         (r"lm_head$", P("fsdp", "tp")),

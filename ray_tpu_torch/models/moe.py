@@ -47,6 +47,7 @@ from ray_tpu_torch.models import llama
 from ray_tpu_torch.ops.norms import rmsnorm
 from ray_tpu_torch.ops.rope import rope_angles
 from ray_tpu_torch.parallel import sharding
+from ray_tpu_torch.parallel.context import SP_IMPLS
 from ray_tpu_torch.parallel.sharding import P, ShardingRules
 
 Params = llama.Params
@@ -275,22 +276,36 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
                    segment_ids: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """-> (final-norm hidden, head, mean aux loss over layers); each block
-    under ``torch.utils.checkpoint`` with ``cfg.remat`` and grad on."""
+    under ``torch.utils.checkpoint`` with ``cfg.remat`` and grad on.
+    Refuses a pipeline axis, as JAX's does. Under ring or Ulysses
+    attention the stream is split over sp by sequence as Llama's
+    (``llama._layers``); the routing map gathers it whole, so the routing
+    groups stay the whole batch's, as JAX's."""
+    if cfg.pipeline_axis is not None:
+        raise NotImplementedError(
+            "pipeline parallelism for the MoE family is not implemented "
+            "(use dp/fsdp/tp/ep); silently ignoring pipeline_axis would "
+            "train an unpipelined model under pipeline shardings")
     cdt = cfg.compute_dtype
     x = llama.embed(params, tokens, cfg)
     sin, cos = rope_angles(tokens.shape[1], cfg.head_dim, cfg.rope_theta,
                            cdt, x.device)
+    if cfg.attn_impl in SP_IMPLS:
+        x = sharding.split_sequence(x)
     layers = {k: w.unbind(0) for k, w in params["layers"].items()}
     remat = cfg.remat and torch.is_grad_enabled()
+    contexts = llama.remat_context_fn()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         layer = {k: ws[i] for k, ws in layers.items()}
         if remat:
             x, a = checkpoint(_moe_block, cfg, x, layer, sin, cos,
-                              segment_ids, use_reentrant=False)
+                              segment_ids, use_reentrant=False,
+                              context_fn=contexts)
         else:
             x, a = _moe_block(cfg, x, layer, sin, cos, segment_ids)
         aux = aux + a
+    x = sharding.gather_sequence(x)
     x = rmsnorm(x, params["final_norm"].to(cdt), cfg.norm_eps)
     return x, llama.lm_head(params, cfg), aux / cfg.n_layers
 

@@ -578,6 +578,25 @@ def flash_bwd(q, k, v, o, lse, do, q_offset: Offset = 0, *,
 flash_bwd.launches = 0
 
 
+def flash_vjp_chunk(q, k, v, o, do, lse, *, q_offset: Offset,
+                    causal: bool = True, scale: Optional[float] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One k/v chunk's additive share of the backward, for ring attention
+    (``ray_tpu/ops/pallas/flash.py:363-408``): (dq, dk, dv) of the chunk
+    from the GLOBAL (o, lse) of the softmax over every chunk, so that
+    p = exp(s - lse) is the true weight; dk and dv are summed over the GQA
+    group. Summing dq over the chunks, and each chunk's dk and dv over the
+    query chunks, gives the exact gradients. ``flash_dq`` then
+    ``flash_dkv`` (their plain versions for a CPU tensor): delta =
+    rowsum(o * do) comes from ``o`` as given, in q's dtype, as JAX saves
+    it."""
+    dq, delta = flash_dq(q, k, v, o, lse, do, q_offset, causal=causal,
+                         scale=scale)
+    dk, dv = flash_dkv(q, k, v, lse, delta, do, q_offset, causal=causal,
+                       scale=scale)
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
     """``flash_fwd`` forward, ``flash_bwd`` backward; the counterpart of
     JAX's ``_flash_core`` custom_vjp."""

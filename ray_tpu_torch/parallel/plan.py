@@ -9,9 +9,10 @@ optimizer state and each batch leaf live, and the step builders
 JAX compiles a step in one of two modes: **pjit**, pure GSPMD with the
 plan's in/out shardings pinned, or **shard_map**, for bodies with manual
 collective regions (pipeline stages, ring/Ulysses attention over ``sp``).
-The port's counterpart of the first is eager DTensor propagation; the
-second is not ported (ROADMAP.md Queue 1 item 9), so ``plan_mode`` raises
-a :class:`PlanError` for the configs and meshes that would need it.
+The port runs both eagerly on DTensors; its manual regions are
+``local_map`` calls (``parallel/context.py``, ``parallel/pipeline.py``)
+that read the ambient mesh, which the step sets. ``plan_mode`` reports
+JAX's mode.
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ from ray_tpu_torch.parallel.sharding import P
 
 PJIT = "pjit"
 SHARD_MAP = "shard_map"
-_ITEM_9 = "not ported yet (ROADMAP.md Queue 1 item 9)"
 
 
 class PlanError(ValueError):
@@ -46,24 +46,24 @@ def axis_size(mesh, name: str) -> int:
 
 
 def plan_mode(cfg: Any, mesh) -> str:
-    """JAX's mode for ``cfg``'s step: ``PJIT`` for pure GSPMD bodies. A
-    pipeline axis, ring/Ulysses attention or a non-trivial ``sp`` axis
-    need JAX's ``SHARD_MAP`` mode, which the port lacks: PlanError."""
+    """JAX's mode for ``cfg``'s step: ``SHARD_MAP`` where the body has
+    manual-collective regions (a pipeline axis, ring/Ulysses attention, a
+    non-trivial ``sp`` axis), ``PJIT`` for pure GSPMD bodies."""
     if getattr(cfg, "pipeline_axis", None) is not None:
-        raise PlanError(f"pipeline stages need the {SHARD_MAP} mode",
-                        _ITEM_9)
+        return SHARD_MAP
     if getattr(cfg, "attn_impl", "") in ("ring", "ulysses"):
-        raise PlanError(f"attn_impl={cfg.attn_impl!r} needs the "
-                        f"{SHARD_MAP} mode", _ITEM_9)
+        return SHARD_MAP
     if mesh is not None and axis_size(mesh, "sp") > 1:
-        raise PlanError(f"a non-trivial sp axis needs the {SHARD_MAP} mode",
-                        _ITEM_9)
+        return SHARD_MAP
     return PJIT
 
 
 def _check_splits(cfg: Any, mesh) -> None:
     """Heads split over tp keep GQA's head map local only when both head
-    counts divide by it; experts split over ep must divide too."""
+    counts divide by it; experts split over ep must divide too; pipeline
+    stages take equal blocks of layers; Ulysses splits each rank's tp
+    heads over sp. (A sequence that sp does not divide is refused where
+    ring or Ulysses attention splits it: ``sharding.split_sequence``.)"""
     tp, ep = axis_size(mesh, "tp"), axis_size(mesh, "ep")
     for field in ("n_heads", "n_kv_heads"):
         n = getattr(cfg, field, None)
@@ -73,6 +73,17 @@ def _check_splits(cfg: Any, mesh) -> None:
     n = getattr(cfg, "n_experts", None)
     if n is not None and n % ep:
         raise PlanError(f"n_experts={n} does not divide by ep={ep}")
+    axis = getattr(cfg, "pipeline_axis", None)
+    if axis is not None and cfg.n_layers % axis_size(mesh, axis):
+        raise PlanError(f"n_layers={cfg.n_layers} does not divide by "
+                        f"{axis}={axis_size(mesh, axis)}",
+                        "each pipeline stage holds an equal block of layers")
+    sp = axis_size(mesh, "sp")
+    if getattr(cfg, "attn_impl", "") == "ulysses" and (
+            cfg.n_heads // tp) % sp:
+        raise PlanError(f"ulysses: {cfg.n_heads // tp} q heads a tp rank "
+                        f"do not divide by sp={sp}",
+                        "the all-to-all hands each sp rank a head group")
 
 
 def abstract_params(cfg: Any) -> Dict[str, Any]:
@@ -110,7 +121,9 @@ class Plan:
         if self.rules is None:
             from ray_tpu_torch.parallel.train_step import model_family
 
-            self.rules = model_family(self.cfg).sharding_rules()
+            self.rules = model_family(self.cfg).sharding_rules(
+                pipeline=getattr(self.cfg, "pipeline_axis", None)
+                is not None)
         return self.rules
 
     def state_shardings(self, optimizer) -> Tuple[Any, Any]:
@@ -154,17 +167,22 @@ class Plan:
     def place_batch(self, batch: Any, stacked: bool = False) -> Any:
         """Place a host batch (the global batch, the same on every rank)
         on the mesh: each rank keeps its rows, batch dim over (dp, fsdp),
-        without a collective. A leaf already placed so comes back as it
-        is; one placed otherwise is redistributed."""
+        and its sequence chunk, over a non-trivial sp axis where that
+        divides the sequence (JAX's rule), without a collective. A leaf
+        already placed so comes back as it is; one placed otherwise is
+        redistributed."""
         from torch.distributed.tensor import DTensor
 
         bdim = 1 if stacked else 0
         split = (axis_size(self.mesh, "dp") * axis_size(self.mesh, "fsdp"))
+        sp = axis_size(self.mesh, "sp")
 
         def place(path, x):
             if not isinstance(x, (torch.Tensor, np.ndarray)):
                 return x
-            target = self.batch_sharding(x.ndim, False, stacked)
+            shard_seq = (x.ndim >= bdim + 2 and sp > 1
+                         and x.shape[bdim + 1] % sp == 0)
+            target = self.batch_sharding(x.ndim, shard_seq, stacked)
             if isinstance(x, DTensor):
                 return x if x.placements == target else x.redistribute(
                     self.compute_mesh, target)

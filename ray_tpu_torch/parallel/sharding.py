@@ -275,13 +275,81 @@ def activation_placements(mesh, dims: Dict[int, Tuple[str, ...]]) -> tuple:
                  for n in mesh.mesh_dim_names)
 
 
+def _seq_split(x) -> bool:
+    """Whether the residual stream ``x`` has its sequence (dim 1) split
+    over ``sp`` (ring or Ulysses attention: ``split_sequence``)."""
+    from torch.distributed.tensor import Shard
+
+    names = x.device_mesh.mesh_dim_names
+    return "sp" in names and x.placements[names.index("sp")] == Shard(1)
+
+
+def stream_placements(x) -> tuple:
+    """The residual stream's placements for ``x``: rows over the data
+    axes, the sequence over sp where ``x`` has it split so, every other
+    mesh dim replicated."""
+    seq = ("sp",) if _seq_split(x) else ()
+    return activation_placements(x.device_mesh, {0: BATCH_AXES, 1: seq})
+
+
+def split_sequence(x):
+    """The residual stream ``x`` [b, s, d] with its sequence split over
+    ``sp`` (a slice of each rank's rows, no collective), for ring or
+    Ulysses attention: the blocks then run on each rank's chunk. A plain
+    tensor, or a mesh without an sp axis of size > 1, comes back as it
+    is. Raises PlanError where sp does not divide s (the ring's chunks
+    are equal, as JAX's shard_map needs)."""
+    from torch.distributed.tensor import Shard
+
+    if not is_sharded(x) or "sp" not in x.device_mesh.mesh_dim_names:
+        return x
+    names = x.device_mesh.mesh_dim_names
+    sp = x.device_mesh.shape[names.index("sp")]
+    if x.shape[1] % sp:
+        from ray_tpu_torch.parallel.plan import PlanError
+
+        raise PlanError(f"sequence {x.shape[1]} does not divide by sp={sp}",
+                        "ring and Ulysses attention split the sequence "
+                        "into equal chunks")
+    places = list(x.placements)
+    places[names.index("sp")] = Shard(1)
+    return x.redistribute(x.device_mesh, places)
+
+
+def gather_sequence(x):
+    """``split_sequence`` undone: the stream all-gathered over sp (its
+    backward takes each rank's chunk of the gradient)."""
+    if not is_sharded(x) or not _seq_split(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    places = list(x.placements)
+    places[x.device_mesh.mesh_dim_names.index("sp")] = Replicate()
+    return x.redistribute(x.device_mesh, places)
+
+
+def sequence_block(x, *tables: torch.Tensor) -> tuple:
+    """``tables`` ([s, ...], e.g. the RoPE sin and cos) cut to the
+    positions of the sequence block of ``x`` ([b, s, ...]) this rank
+    holds: all of them unless ``x`` splits its sequence."""
+    if not is_sharded(x):
+        return tables
+    mesh = x.device_mesh
+    off, size = block_box(x.shape, mesh.shape, x.placements,
+                          mesh.get_coordinate())
+    if (off[1], size[1]) == (0, x.shape[1]):
+        return tables
+    return tuple(t.narrow(0, off[1], size[1]) for t in tables)
+
+
 def rows_map(fn, x, weights: tuple, ids: tuple = ()):
     """``fn(x, *weights, *ids)`` on each rank's blocks, through
     ``torch.distributed.tensor.experimental.local_map``, for a block that
     reads the residual stream ``x`` and returns what it adds to it (a
     pre-norm attention or MLP, tensor-parallel as Megatron's):
 
-    - ``x``: rows over the data axes, replicated over tp and the rest
+    - ``x``: rows over the data axes, its sequence over sp where it is
+      split so (``split_sequence``), replicated over tp and the rest
       (redistributed so where it is not);
     - each weight: as given (gathered over fsdp by the caller), its
       heads or ff columns over tp;
@@ -293,18 +361,20 @@ def rows_map(fn, x, weights: tuple, ids: tuple = ()):
     The local gradients it declares: ``x``'s is partial over tp (each
     rank's share through its columns); a weight's is partial over the
     data axes (its rows' share: the fsdp gather's backward reduce-scatters
-    it, dp all-reduces it) and, for a weight replicated over tp (a norm
-    scale, upstream of the split columns), over tp too."""
+    it, dp all-reduces it), over sp where the sequence is split (its
+    chunk's share), and, for a weight replicated over tp (a norm scale,
+    upstream of the split columns), over tp too."""
     from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
 
     mesh = x.device_mesh
     names = mesh.mesh_dim_names
-    rows = activation_placements(mesh, {0: BATCH_AXES})
+    rows = stream_placements(x)
     shares = tuple(Partial() if n == "tp" else p for n, p in zip(names, rows))
+    partial_axes = BATCH_AXES + (("sp",) if _seq_split(x) else ())
 
     def grad_of(w):
-        return tuple(Partial() if n in BATCH_AXES or (
+        return tuple(Partial() if n in partial_axes or (
             n == "tp" and not p.is_shard()) else p
             for n, p in zip(names, w.placements))
 
@@ -318,16 +388,16 @@ def rows_map(fn, x, weights: tuple, ids: tuple = ()):
 
 
 def residual_add(x, delta):
-    """``x + delta``, on a mesh in the residual stream's placement (rows
-    over the data axes, replicated elsewhere): ``delta`` (a block's
-    shares, partial over tp) and ``x`` are redistributed to it (the tp
-    all-reduce) and added on the local blocks, which skips DTensor's
-    strategy search for the add."""
+    """``x + delta``, on a mesh in the residual stream's placement
+    (``stream_placements``): ``delta`` (a block's shares, partial over
+    tp) and ``x`` are redistributed to it (the tp all-reduce) and added
+    on the local blocks, which skips DTensor's strategy search for the
+    add."""
     if not is_sharded(x):
         return x + delta
     from torch.distributed.tensor.experimental import local_map
 
-    rows = activation_placements(x.device_mesh, {0: BATCH_AXES})
+    rows = stream_placements(x)
     return local_map(torch.add, out_placements=(rows,),
                      in_placements=(rows, rows), device_mesh=x.device_mesh,
                      redistribute_inputs=True)(x, delta)

@@ -25,7 +25,11 @@ JAX's runs under GSPMD (the models' docstrings say how). Each gradient is
 redistributed to its param's placements (the fsdp reduce-scatter where
 autograd left it partial), the global-norm clip sums squares across the
 shards, and the moment update runs on each rank's local blocks, which
-share one placement. 1f1b is not ported yet (ROADMAP.md, Queue 1).
+share one placement. The step runs inside ``context.mesh_scope`` of its
+mesh, where ring/Ulysses attention and the pipeline stages find it; with
+``pipeline_schedule="1f1b"`` the loss and gradients come from the 1F1B
+schedule (``llama.lm_loss_and_grads_1f1b``), which cannot fuse K steps
+(``supports_multi_step``).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import torch
 from ray_tpu_torch._device import DeviceLike, check_params_on, resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.parallel import sharding
+from ray_tpu_torch.parallel.context import mesh_scope
 from ray_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 from ray_tpu_torch.parallel.plan import (Plan, compile_plan, compile_step,
                                          placement_plan)
@@ -259,10 +264,10 @@ def model_family(cfg):
 
 
 def supports_multi_step(cfg) -> bool:
-    """Whether ``make_multi_step`` can fuse K steps for this config. JAX's
-    1f1b pipeline schedule cannot; the port's configs have no pipeline
-    fields (1f1b is not ported), so this is always true here and the
-    driver's degrade logic reads like JAX's."""
+    """Whether ``make_multi_step`` can fuse K steps for this config: not
+    under the 1f1b pipeline schedule (JAX's manual interleave cannot ride
+    a ``lax.scan`` carry), so the ``StepDriver`` degrades to single
+    steps there, as JAX's does."""
     return not (getattr(cfg, "pipeline_axis", None) is not None
                 and getattr(cfg, "pipeline_schedule", "gpipe") == "1f1b")
 
@@ -294,7 +299,8 @@ def init_sharded_state(cfg: llama.LlamaConfig, mesh, optimizer: AdamW, *,
 
     _check_device_type(mesh.device_type)
     fam = model_family(cfg)
-    rules = rules or fam.sharding_rules()
+    rules = rules or fam.sharding_rules(
+        pipeline=getattr(cfg, "pipeline_axis", None) is not None)
     cmesh = sharding.compute_mesh(mesh)
     device = sharding._mesh_device(cmesh)
     placed = {}
@@ -357,6 +363,24 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW,
     return _instrumented(step, cfg)
 
 
+def _grad_fn(cfg, loss_fn: Optional[Callable]) -> Callable:
+    """(params, batch) -> (loss, gradients by leaf name): the 1f1b
+    schedule's own, with JAX's refusals (``ray_tpu/parallel/
+    train_step.py:81-90``), or ``value_and_grad`` of ``loss_fn``
+    (default: the family's ``lm_loss``)."""
+    if not supports_multi_step(cfg):
+        if loss_fn is not None:
+            raise ValueError("1f1b computes its own loss inside the "
+                             "pipeline; custom loss_fn unsupported")
+        if model_family(cfg) is not llama:
+            raise NotImplementedError("1f1b schedule: dense llama only")
+        return lambda params, batch: llama.lm_loss_and_grads_1f1b(
+            params, batch, cfg)
+    loss_fn = loss_fn or model_family(cfg).lm_loss
+    return lambda params, batch: value_and_grad(
+        lambda p: loss_fn(p, batch, cfg), params)
+
+
 def _plan_for(cfg, mesh, plan: Optional[Plan], device: DeviceLike
               ) -> Optional[Plan]:
     if mesh is None and plan is None:
@@ -374,20 +398,21 @@ def _sharded_step_fn(cfg, optimizer: AdamW, loss_fn: Optional[Callable],
     ``loss_fn`` may train params the rules do not describe, so its state
     keeps the placements it comes with."""
     custom = loss_fn is not None
-    loss_fn = loss_fn or model_family(cfg).lm_loss
+    grad_fn = _grad_fn(cfg, loss_fn)
 
     def step(params, opt_state, batch):
         batch = plan.place_batch(batch)
-        loss, grads = value_and_grad(lambda p: loss_fn(p, batch, cfg),
-                                     params)
+        with mesh_scope(plan.mesh):
+            loss, grads = grad_fn(params, batch)
         leaves = _leaves(params)
         grads = {k: g if g.placements == leaves[k].placements
                  else g.redistribute(leaves[k].device_mesh,
                                      leaves[k].placements)
                  for k, g in grads.items()}
         gnorm = optimizer.update(params, grads, opt_state)
-        return params, opt_state, {"loss": loss.full_tensor(),
-                                   "grad_norm": gnorm}
+        if sharding.is_sharded(loss):
+            loss = loss.full_tensor()
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     pinned = {}
     if not custom:
@@ -405,13 +430,12 @@ def _step_fn(cfg, optimizer: AdamW, loss_fn: Optional[Callable],
     if plan is not None:
         return _sharded_step_fn(cfg, optimizer, loss_fn, plan)
     device = resolve_device(device)
-    loss_fn = loss_fn or model_family(cfg).lm_loss
+    grad_fn = _grad_fn(cfg, loss_fn)
 
     def step(params, opt_state, batch):
         check_params_on(params, device)
         batch = _to_device(batch, device)
-        loss, grads = value_and_grad(lambda p: loss_fn(p, batch, cfg),
-                                     params)
+        loss, grads = grad_fn(params, batch)
         gnorm = optimizer.update(params, grads, opt_state)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 

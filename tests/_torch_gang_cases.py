@@ -171,24 +171,36 @@ def _drive(args, mesh, params0, batch, opt, loss_fn) -> dict:
                              for k, v in tts._leaves(plain).items()}}
 
 
+def _rules(fam, cfg):
+    """The family's rules for ``cfg`` (the pipelined layout under a
+    pipeline axis)."""
+    if getattr(cfg, "pipeline_axis", None) is not None:
+        return fam.sharding_rules(pipeline=True)
+    return fam.sharding_rules()
+
+
 def train(rank, world, args):
     """``args["steps"]`` steps of ``make_train_step(mesh=...)`` from the
     saved params of ``args["family"]`` (ViT through ``cls_loss``), once
-    per attention impl (``"-"``: the config's own); per impl the losses,
-    grad norms, final params and moments (rank 0) and the placements the
-    state carries."""
+    per attention impl (``"-"``: the config's own), or once per named
+    config variant of ``args["runs"]`` (fields to replace), each on
+    ``args["batch"]`` or its own of ``args["run_batches"]``; per run the
+    losses, grad norms, final params and moments (rank 0) and the
+    placements the state carries."""
     mesh = _mesh(args)
     params0 = torch.load(args["params"])
-    batch = _batch(args)
     opt = tts.default_optimizer(**args["opt"])
     fam = FAMILIES[args.get("family", "llama")]
     loss_fn = tvit.cls_loss if fam is tvit else None
+    runs = args.get("runs") or {
+        impl: {} if impl == "-" else {"attn_impl": impl}
+        for impl in args["impls"]}
     out = {}
-    for impl in args["impls"]:
-        cfg = _cfg(args)
-        if impl != "-":
-            cfg = dataclasses.replace(cfg, attn_impl=impl)
-        params = sharding.shard_pytree(params0, mesh, fam.sharding_rules())
+    for impl, fields in runs.items():
+        batch = _batch(dict(args, **args.get("run_batches", {}).get(
+            impl, {})))
+        cfg = dataclasses.replace(_cfg(args), **fields)
+        params = sharding.shard_pytree(params0, mesh, _rules(fam, cfg))
         state = opt.init(params)
         step = tts.make_train_step(cfg, opt, loss_fn, mesh=mesh)
         losses, norms, secs = [], [], []
@@ -285,4 +297,112 @@ def collective(rank, world, args):
     return out
 
 
-CASES = {"train": train, "checkpoint": checkpoint, "collective": collective}
+def _grads_full(grads) -> dict:
+    """Global values of a gradient dict (partial ones summed)."""
+    return {k: (g.full_tensor() if sharding.is_sharded(g) else g).numpy()
+            .copy() for k, g in grads.items()}
+
+
+def sp_attention(rank, world, args):
+    """``sequence_parallel_attention`` for each impl of ``args["impls"]``
+    on each saved q/k/v set (``<set>_q`` ...) under each mesh of
+    ``args["meshes"]``, the inputs placed as JAX's shard_map takes them
+    (batch over dp and fsdp, sequence over sp, heads over tp): the output
+    and the gradients of sum(o ** 2), as global values. With
+    ``check_heads``, the message of Ulysses' refusal of 2 q heads at sp
+    4."""
+    from ray_tpu_torch.parallel import context
+
+    with np.load(args["qkv"]) as z:
+        data = {k: torch.from_numpy(z[k]) for k in z.files}
+    out = {}
+    for mesh_name, shape in args["meshes"].items():
+        mesh = make_mesh(MeshConfig(**shape), device_type="cpu")
+        cmesh = sharding.compute_mesh(mesh)
+        spec = sharding.activation_placements(
+            cmesh, {0: sharding.BATCH_AXES, 1: ("sp",), 2: ("tp",)})
+        for name in args["sets"]:
+            for impl in args["impls"]:
+                qkv = [sharding.distribute(data[f"{name}_{n}"], cmesh, spec)
+                       .requires_grad_(True) for n in "qkv"]
+                with context.mesh_scope(mesh):
+                    o = context.sequence_parallel_attention(*qkv, impl=impl)
+                grads = torch.autograd.grad(o, qkv, 2 * o.detach())
+                out[f"{mesh_name}/{name}/{impl}"] = {
+                    "o": o.full_tensor().detach().numpy(),
+                    **{f"d{n}": g.full_tensor().numpy()
+                       for n, g in zip("qkv", grads)}}
+        if args.get("check_heads") and shape == {"sp": 4}:
+            x = torch.zeros(1, 4, 2, 16)
+            try:
+                context.ulysses_attention(x, x, x,
+                                          context.axis_group(mesh, "sp"))
+            except ValueError as e:
+                out["heads_error"] = str(e)
+    return out
+
+
+def pipeline_tanh(rank, world, args):
+    """JAX's tanh stack (``tests/test_long_context.py:113-159``) through
+    ``pipeline_apply``: the output at (pp 4) without remat, and at (pp 2,
+    fsdp 2) with remat the output and the weights' gradient of
+    sum(y ** 2)."""
+    from ray_tpu_torch.parallel.pipeline import pipeline_apply
+
+    def stage(stage_ws, h):
+        for w in stage_ws["w"].unbind(0):
+            h = torch.tanh(h @ w)
+        return h
+
+    with np.load(args["data"]) as z:
+        data = {k: torch.from_numpy(z[k]) for k in z.files}
+    mesh = make_mesh(MeshConfig(pp=4), device_type="cpu")
+    y = pipeline_apply(stage, {"w": data["ws4"]}, data["x4"], mesh,
+                       num_microbatches=4, remat=False)
+    out = {"pp4": y.full_tensor().numpy()}
+    mesh = make_mesh(MeshConfig(pp=2, fsdp=2), device_type="cpu")
+    cmesh = sharding.compute_mesh(mesh)
+    w = sharding.distribute(data["ws2"], cmesh, sharding.placements(
+        sharding.P("pp"), cmesh, 3)).requires_grad_(True)
+    y = pipeline_apply(stage, {"w": w}, data["x2"], mesh,
+                       num_microbatches=2)
+    g, = torch.autograd.grad(y, [w], 2 * y.detach())
+    out["pp2"] = y.full_tensor().detach().numpy()
+    out["pp2_grad"] = g.full_tensor().numpy()
+    return out
+
+
+def llama_pipeline(rank, world, args):
+    """The ``debug`` preset's loss and gradients under both schedules on
+    ``args["mesh"]`` (``pipeline_microbatches`` 4, the pipelined rules,
+    inside ``mesh_scope``), for each saved batch variant: GPipe through
+    ``lm_loss``, 1F1B through ``lm_loss_and_grads_1f1b``."""
+    from ray_tpu_torch.parallel import context
+
+    mesh = _mesh(args)
+    base = _cfg(args)
+    params = sharding.shard_pytree(torch.load(args["params"]), mesh,
+                                   tllama.sharding_rules(pipeline=True))
+    with np.load(args["batch"]) as z:
+        data = {k: z[k] for k in z.files}
+    out = {}
+    for variant, keys in args["variants"].items():
+        batch = {k.split("/")[-1]: data[k] for k in keys}
+        for schedule in ("gpipe", "1f1b"):
+            cfg = dataclasses.replace(base, pipeline_axis="pp",
+                                      pipeline_microbatches=4,
+                                      pipeline_schedule=schedule)
+            plan = tts.compile_plan(cfg, mesh)
+            placed = plan.place_batch(batch)
+            with context.mesh_scope(mesh):
+                loss, grads = tts._grad_fn(cfg, None)(params, placed)
+            if sharding.is_sharded(loss):
+                loss = loss.full_tensor()
+            out[f"{variant}/{schedule}"] = {"loss": float(loss),
+                                            "grads": _grads_full(grads)}
+    return out
+
+
+CASES = {"train": train, "checkpoint": checkpoint, "collective": collective,
+         "sp_attention": sp_attention, "pipeline_tanh": pipeline_tanh,
+         "llama_pipeline": llama_pipeline}

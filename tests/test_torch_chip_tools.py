@@ -163,8 +163,44 @@ def test_forward_work_counts_visible_pairs(sq, sk, offs, causal):
     assert flops == 4.0 * d * pairs
     keys = sum(max((min(max(r + o + 1, 0), sk) if causal else sk)
                    for r in range(sq)) for o in offs)
-    assert nbytes == (2 * b * sq * hq * d * 2 + b * hq * sq * 4 + b * 4
-                      + 2 * keys * hkv * d * 2)
+    # q is read only for rows that see a key; o, lse and offsets always
+    live = sum(1 for o in offs for r in range(sq)
+               if not causal or r + o + 1 > 0)
+    assert nbytes == ((live + b * sq) * hq * d * 2 + b * hq * sq * 4
+                      + b * 4 + 2 * keys * hkv * d * 2)
+
+
+@pytest.mark.parametrize("sq,sk,offs,causal", [
+    (100, 100, [-30, 5, 64], True),   # per-row offsets, one row partly dead
+    (40, 300, [100, 100], True),      # the diagonal inside the keys
+    (96, 96, [-1000, -1000], True),   # every row dead
+    (30, 70, [0, 0], False),
+])
+def test_backward_work_counts_visible_pairs(sq, sk, offs, causal):
+    """dq reads o and do and writes dq and delta for every row, q and lse
+    for rows that see a key; dkv and the whole backward read nothing of a
+    row that sees no key and write dk and dv whole."""
+    import torch
+
+    hq, hkv, d = 8, 2, 64
+    b = len(offs)
+    pairs, nbytes = _chip_smoke().bwd_work(
+        torch, b, sq, sk, hq, hkv, d, causal,
+        torch.tensor(offs, dtype=torch.int32), torch.bfloat16)
+    vis = [min(max(r + o + 1, 0), sk) if causal else sk
+           for o in offs for r in range(sq)]
+    assert pairs == sum(vis) * hq
+    keys = sum(max(vis[i * sq:(i + 1) * sq]) for i in range(b))
+    live = sum(1 for v in vis if v > 0)
+    row, live_row = hq * d * 2, live * hq * d * 2     # bf16 [.., hq, d]
+    kv, kv_out = keys * hkv * d * 2, b * sk * hkv * d * 2
+    assert nbytes == {
+        "dq": live_row + 3 * b * sq * row + 2 * kv + live * hq * 4
+        + b * sq * hq * 4,
+        "dkv": 2 * live_row + 2 * kv + 2 * live * hq * 4 + 2 * kv_out,
+        "bwd": 3 * live_row + 2 * kv + live * hq * 4 + b * sq * row
+        + 2 * kv_out,
+    }
 
 
 def test_forward_device_time_splits_by_kernel_namespace():

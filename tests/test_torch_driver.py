@@ -222,10 +222,8 @@ def test_driver_refusals_match_jax():
     """A feed stacking more batches per group than the driver fuses would
     silently single-step everything: both drivers refuse it, with JAX's
     messages. The port takes a mesh or a plan, but refuses a device beside
-    one, and a layout that needs JAX's shard_map mode (not ported)."""
+    one. Under the 1f1b schedule both degrade to single steps."""
     from types import SimpleNamespace
-
-    from ray_tpu_torch.parallel.plan import PlanError
 
     jcfg, tcfg, jp = _setup("llama")
     jopt, topt = jts.default_optimizer(**OPT), tts.default_optimizer(**OPT)
@@ -243,8 +241,22 @@ def test_driver_refusals_match_jax():
             drv.run(params, state, iter([{"tokens": toks}]), stacked=True)
         assert drv.steps == drv.launches == 0
     sp_mesh = SimpleNamespace(mesh_dim_names=("sp", "fsdp"), shape=(2, 2))
-    with pytest.raises(PlanError, match="item 9"):
-        tdriver.StepDriver(tcfg, topt, mesh=sp_mesh)
+    # the 1f1b schedule (item 9) cannot fuse K steps: make_multi_step
+    # refuses it and both drivers degrade to single steps
+    # (tests/test_zz_train_fast.py:157-173)
+    for mod, cfg, where in (
+            (jts, dataclasses.replace(jcfg, pipeline_axis="pp",
+                                      pipeline_schedule="1f1b"), {}),
+            (tts, dataclasses.replace(tcfg, pipeline_axis="pp",
+                                      pipeline_schedule="1f1b"),
+             {"device": "cpu"})):
+        assert not mod.supports_multi_step(cfg)
+        with pytest.raises(NotImplementedError, match="1f1b"):
+            mod.make_multi_step(cfg, mod.default_optimizer(), 4, **where)
+        drv = (jdriver if mod is jts else tdriver).StepDriver(
+            cfg, mod.default_optimizer(), steps_per_launch=4, **where)
+        assert drv.requested_steps_per_launch == 4
+        assert drv.steps_per_launch == 1 and not drv.fused
     for kw in ({"mesh": sp_mesh}, {"plan": object()}):
         with pytest.raises(ValueError, match="not both"):
             tdriver.StepDriver(tcfg, topt, device="cpu", **kw)

@@ -79,6 +79,8 @@ def test_port_imports_no_jax_and_no_ray_tpu():
             "ray_tpu_torch/parallel/mesh.py",
             "ray_tpu_torch/parallel/sharding.py",
             "ray_tpu_torch/parallel/plan.py",
+            "ray_tpu_torch/parallel/context.py",
+            "ray_tpu_torch/parallel/pipeline.py",
             "ray_tpu_torch/collective/__init__.py",
             "ray_tpu_torch/collective/collective.py",
             "ray_tpu_torch/collective/rendezvous.py", "chip_smoke.py"} <= names

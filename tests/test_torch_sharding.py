@@ -96,8 +96,19 @@ def test_rules_give_jax_specs_and_cover_every_matrix(family):
 
 
 def test_pipeline_rules_name_item_9():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tllama.sharding_rules(pipeline=True)
+    """The pipelined rules (item 9 of the roadmap) are JAX's: the layer
+    stack over pp, every other leaf replicated; MoE refuses them, as JAX's
+    does."""
+    abstract, _ = _jax_specs("llama")
+    jspecs = _flat_paths(jllama.sharding_rules(pipeline=True).tree_specs(
+        abstract))
+    trules = tllama.sharding_rules(pipeline=True)
+    for path, spec in jspecs.items():
+        assert tuple(trules.spec_for(path)) == tuple(spec), path
+    assert tuple(trules.spec_for("layers/wq")) == ("pp",)
+    for mod in (tmoe, jmoe):
+        with pytest.raises(NotImplementedError, match="MoE family"):
+            mod.sharding_rules(pipeline=True)
     assert tuple(tllama.data_rules().spec_for("tokens")) == tuple(
         jllama.data_rules().spec_for("tokens"))
     assert tuple(sharding.data_spec()) == tuple(jsharding.data_spec())
@@ -195,16 +206,29 @@ def test_plan_mode_selection_and_placement():
         mesh, mcfg = tts.auto_mesh(8, tp=2, device_type="cpu")
         assert (mcfg.fsdp, mcfg.tp) == (4, 2)
         assert tplan.plan_mode(cfg, mesh) == tplan.PJIT
-        # JAX compiles these in shard_map mode, which the port lacks
-        ring = dataclasses.replace(cfg, attn_impl="ring")
-        assert jplan.plan_mode(dataclasses.replace(
-            jcfg, attn_impl="ring"), jmesh8) == jplan.SHARD_MAP
-        for bad, m in ((ring, mesh),
-                       (types.SimpleNamespace(pipeline_axis="pp"), mesh),
-                       (cfg, tts.auto_mesh(8, tp=1, sp=2,
-                                           device_type="cpu")[0])):
-            with pytest.raises(tplan.PlanError, match="item 9"):
-                tplan.plan_mode(bad, m)
+        # manual-collective bodies (item 9): JAX's shard_map mode
+        jsp8, _ = jts.auto_mesh(8, tp=1, sp=2)
+        tsp8 = tts.auto_mesh(8, tp=1, sp=2, device_type="cpu")[0]
+        for fields, jm, tm in (({"attn_impl": "ring"}, jmesh8, mesh),
+                               ({"attn_impl": "ulysses"}, jmesh8, mesh),
+                               ({"pipeline_axis": "pp"}, jmesh8, mesh),
+                               ({}, jsp8, tsp8)):
+            want = jplan.plan_mode(dataclasses.replace(jcfg, **fields), jm)
+            assert want == jplan.SHARD_MAP
+            assert tplan.plan_mode(dataclasses.replace(cfg, **fields),
+                                   tm) == want
+        assert tplan.plan_mode(types.SimpleNamespace(pipeline_axis="pp"),
+                               None) == tplan.SHARD_MAP
+        # the sequence over a non-trivial sp axis where it divides (JAX's
+        # rule), rows over (dp, fsdp) always
+        splan = tplan.compile_plan(cfg, tsp8)
+        jsplan = jplan.compile_plan(jcfg, jsp8)
+        for n in (33, 34):
+            got = splan.place_batch({"t": np.zeros((8, n), np.int32)})["t"]
+            want = jsplan.place_batch({"t": np.zeros((8, n), np.int32)})["t"]
+            assert tuple(got.placements) == sharding.placements(
+                want.sharding.spec, splan.compute_mesh, 2), n
+            assert (got.placements[1] == Shard(1)) == (n % 2 == 0)
         plan = tplan.compile_plan(cfg, mesh)
         toks = np.zeros((8, 33), np.int32)
         via_plan = plan.place_batch({"tokens": toks})["tokens"]
@@ -237,6 +261,39 @@ def test_plan_mode_selection_and_placement():
         assert {k: v.placements for k, v in state["mu"].items()} == \
             opt_pl["mu"]
         assert plan.state_shardings(opt) is plan.state_shardings(opt)
+
+
+def test_compile_plan_checks_sp_and_pp_splits():
+    """Pipeline stages take equal blocks of layers, Ulysses splits each tp
+    rank's q heads over sp, and ring or Ulysses attention splits the
+    sequence in equal chunks: PlanErrors, raised before any step runs.
+    compile_step keeps JAX's both-or-neither rule in shard_map mode."""
+    cfg = tllama.PRESETS["debug"]           # 2 layers, 4 q heads
+    with fake_rank(0):
+        pp4 = tts.auto_mesh(8, tp=1, pp=4, device_type="cpu")[0]
+        with pytest.raises(tplan.PlanError, match="n_layers=2 .* pp=4"):
+            tplan.compile_plan(dataclasses.replace(cfg, pipeline_axis="pp"),
+                               pp4)
+        sp4_tp2 = tts.auto_mesh(8, tp=2, sp=4, device_type="cpu")[0]
+        uly = dataclasses.replace(cfg, attn_impl="ulysses")
+        with pytest.raises(tplan.PlanError, match="2 q heads .* sp=4"):
+            tplan.compile_plan(uly, sp4_tp2)
+        plan = tplan.compile_plan(dataclasses.replace(cfg, attn_impl="ring"),
+                                  sp4_tp2)
+        assert plan.mode == tplan.SHARD_MAP
+        with pytest.raises(tplan.PlanError, match="both"):
+            tplan.compile_step(lambda x: x, plan, out_shardings=(None,))
+        x = sharding.distribute(torch.zeros(2, 33, 4), plan.compute_mesh,
+                                plan.replicated())
+        with pytest.raises(tplan.PlanError, match="33 does not divide by "
+                                                  "sp=4"):
+            sharding.split_sequence(x)
+        x = sharding.distribute(torch.zeros(2, 32, 4), plan.compute_mesh,
+                                plan.replicated())
+        split = sharding.split_sequence(x)
+        assert split.placements == (Shard(1), Replicate())   # (sp, tp)
+        assert split.to_local().shape == (2, 8, 4)
+        assert sharding.gather_sequence(split).placements == x.placements
 
 
 def test_compile_plan_checks_splits_and_compile_step_both_shardings():
