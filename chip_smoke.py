@@ -135,11 +135,24 @@ process per source, all at once), then:
    same operator count in each of 5 iterations (``op_counter``), no
    flash launch; device kernels of 5 profiled iterations, env-steps/s and
    episodes over the first and last 10;
-15. ViT (``vit``): ``b16`` at 224 px, batch 64, fp32 masters, bf16
+15. the on-policy RL stack (``rl``), one process on the card: the
+   ``cartpole-ppo`` tuned example's config and stop values (2 runners x 8
+   envs x 64 steps, up to 60 iterations, stop at a return of 150)
+   through ``run_train``, whose best ``episode_return_mean`` must exceed
+   100 (JAX's ``tests/test_rl.py:150``), with seconds an iteration split
+   into sampling and updates and env-steps/s; ``cartpole-impala`` and
+   ``cartpole-pg`` 10 iterations, A2C, APPO and PPO on Pendulum 5 each:
+   env steps an iteration exact, metrics finite, params (Pendulum's
+   ``log_std`` too) moved; a PPO update of the Catalog's Nature CNN
+   (84x84x4, 6 actions, 256 frames): loss and gradients against the CPU
+   within ``RL_CNN_REL_TOL``, the median of 10 updates and peak memory;
+   ``bench_fused_vs_host()`` at its defaults and the device busy share
+   of one profiled iteration of each leg; no flash launch;
+16. ViT (``vit``): ``b16`` at 224 px, batch 64, fp32 masters, bf16
    compute, remat, 10 constant-Adam steps at 1e-3 on the toy task of
    ``tests/test_model_vit.py``; the loss falls, no flash launch; step ms
    on CUDA events, images/s, MFU, peak memory;
-16. multi-GPU placement on one card (``mesh``): NCCL with world 1 through
+17. multi-GPU placement on one card (``mesh``): NCCL with world 1 through
    a ``file://`` store, ``auto_mesh(1)``, ``init_sharded_state`` of the
    1b preset at full width and depth (every leaf a DTensor with the
    rules' placements), 8 steps of ``make_train_step(mesh=...)`` on the
@@ -151,7 +164,7 @@ process per source, all at once), then:
    bit-equal, each op of the collective group API once on a one-member
    NCCL group, and the process group torn down; mesh and plain step ms
    (the DTensor host cost), the device busy share, peak memory and MFU;
-17. sequence and pipeline parallelism on one card (``seqpipe``): the
+18. sequence and pipeline parallelism on one card (``seqpipe``): the
    ring's loops (``context.ring_forward`` and ``ring_backward``) with
    the 1b train shape's sequence in 4 chunk-ranks rotated in memory, 16
    ``tcb`` and 16 ``flash_vjp_chunk`` calls against one whole-sequence
@@ -166,7 +179,7 @@ process per source, all at once), then:
    loop; launches exactly as ``seqpipe_launches`` gives, step ms (each
    median leaves out step 1, which warms up), busy share, MFU and peak
    memory of each against the plain step;
-18. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
+19. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
 
 Each path (serve, serve_kv, llm, spec, moe, train, driver, moe_train,
 rlhf, mesh, seqpipe)
@@ -175,10 +188,11 @@ just before it runs and reads them just after; a kernel of the paths that
 was not launched fails the run (the float32 CUDA-core forward is on no
 path: its entry reports its launches, 0, and its cases).
 
-Every phase prints one JSON line (``--jsonl PATH`` also appends them to a
-file). Any failed check raises: the script then
-exits non-zero and never prints the last line. ``--only`` runs a subset
-of the phases and prints neither of the last two lines. Without a CUDA device, or
+Every phase prints one JSON line (``rl`` one for each of its parts;
+``--jsonl PATH`` also appends them to a file). Any failed check raises:
+the script then exits non-zero and never prints the last line.
+``--only`` runs a subset of the phases and prints neither of the last
+two lines. Without a CUDA device, or
 without the ``ray_tpu_torch`` package beside it, it exits 2 and prints no
 result.
 """
@@ -3106,6 +3120,311 @@ def vit_phase(torch, np, tts, tflops, flash):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ rl
+
+# ray_tpu_torch/rl/tuned_examples/cartpole-ppo.yaml (a copy of JAX's),
+# written out so the card needs no PyYAML
+RL_TUNED_PPO = {"num_env_runners": 2, "num_envs_per_runner": 8,
+                "rollout_fragment_length": 64, "minibatch_size": 128,
+                "num_epochs": 4, "lr": 0.0003, "entropy_coeff": 0.01,
+                "num_cpus_per_runner": 0.4}
+RL_TUNED_PPO_STOP = {"episode_return_mean": 150, "training_iteration": 60}
+# the learning threshold of JAX's own PPO test (tests/test_rl.py:150)
+RL_LEARN_THRESHOLD = 100.0
+# cartpole-impala.yaml and cartpole-pg.yaml; A2C, APPO and PPO on
+# Pendulum at their default configs. (name, run, env, config, iterations,
+# env steps an iteration)
+RL_OTHERS = (
+    ("cartpole-impala", "IMPALA", "CartPole-v1",
+     {"num_env_runners": 2, "num_envs_per_runner": 8,
+      "rollout_fragment_length": 64, "lr": 0.0005, "entropy_coeff": 0.01,
+      "num_cpus_per_runner": 0.4}, 10, 2 * 8 * 64),
+    ("cartpole-pg", "PG", "CartPole-v1",
+     {"num_env_runners": 2, "num_envs_per_runner": 8,
+      "rollout_fragment_length": 128, "entropy_coeff": 0.005,
+      "num_cpus_per_runner": 0.4}, 10, 2 * 8 * 128),
+    ("cartpole-a2c", "A2C", "CartPole-v1", {}, 5, 1 * 8 * 64),
+    ("cartpole-appo", "APPO", "CartPole-v1", {}, 5, 2 * 8 * 64),
+    ("pendulum-ppo", "PPO", "Pendulum-v1", {}, 5, 1 * 8 * 64))
+RL_CNN_BATCH, RL_CNN_UPDATES = 256, 10
+# the Nature CNN's loss and gradients on the card against the CPU, max
+# |diff| over max |value| per leaf (the contract of the CPU parity tests),
+# fp32 with TF32 off: cuDNN's algorithms and the CPU's sum in other
+# orders, and a conv weight's gradient sums over every output position of
+# the batch (256 x 9 x 9 = 20,736 terms for the second conv)
+RL_CNN_REL_TOL = 1e-4
+
+
+class RLClock:
+    """Patches the RL classes while entered: for each ``train()`` call of
+    any algorithm, the host seconds spent in ``EnvRunner.sample`` and in
+    the Learner's updates (each timed call ends with a device sync, so
+    queued work is charged to the call that launched it), the iteration's
+    seconds and its result; the first algorithm trained and its params
+    before its first iteration."""
+
+    def __init__(self, torch):
+        from ray_tpu_torch.models.convert import params_to_numpy
+        from ray_tpu_torch.rl.algorithm import Algorithm
+        from ray_tpu_torch.rl.env_runner import EnvRunner
+        from ray_tpu_torch.rl.learner import Learner
+
+        self.torch, self.to_numpy = torch, params_to_numpy
+        self.iters, self.algo, self.initial = [], None, None
+        self._busy = False
+        self._targets = [(Algorithm, "train", None),
+                         (EnvRunner, "sample", "sample_s"),
+                         (Learner, "update", "update_s"),
+                         (Learner, "update_minibatch", "update_s")]
+        self._saved = []
+
+    def _wrap(self, orig, key):
+        clock = self
+
+        def timed(obj, *args, **kwargs):
+            if key is None:
+                if clock.algo is None:
+                    clock.algo = obj
+                    clock.initial = clock.to_numpy(obj.get_params())
+                rec = {"sample_s": 0.0, "update_s": 0.0}
+                clock.iters.append(rec)
+                t0 = time.perf_counter()
+                rec["result"] = orig(obj, *args, **kwargs)
+                clock.torch.cuda.synchronize()
+                rec["iteration_s"] = time.perf_counter() - t0
+                return rec["result"]
+            if clock._busy or not clock.iters:
+                return orig(obj, *args, **kwargs)
+            clock._busy = True
+            t0 = time.perf_counter()
+            try:
+                return orig(obj, *args, **kwargs)
+            finally:
+                clock.torch.cuda.synchronize()
+                clock.iters[-1][key] += time.perf_counter() - t0
+                clock._busy = False
+
+        return timed
+
+    def __enter__(self):
+        for cls, name, key in self._targets:
+            self._saved.append((cls, name, cls.__dict__.get(name)))
+            setattr(cls, name, self._wrap(getattr(cls, name), key))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, own in reversed(self._saved):
+            if own is None:
+                delattr(cls, name)
+            else:
+                setattr(cls, name, own)
+        self._saved = []
+
+
+def rl_run(torch, np, rltrain, run, env, config, iters, stop_reward=None):
+    """``run_train`` on the card under an ``RLClock``: the clock, the last
+    result and the printed log."""
+    import io
+
+    out = io.StringIO()
+    with RLClock(torch) as clock:
+        last = rltrain.run_train(run, env=env, config_json=json.dumps(config),
+                                 stop_iters=iters, stop_reward=stop_reward,
+                                 out=out, device=DEV)
+    return clock, last, out.getvalue()
+
+
+def rl_summary(np, clock):
+    its = clock.iters
+    total_s = sum(r["iteration_s"] for r in its)
+    steps = its[-1]["result"]["env_steps_total"] if its else 0
+    return {"iterations": len(its),
+            "iteration_s": [r["iteration_s"] for r in its],
+            "sample_s": [r["sample_s"] for r in its],
+            "update_s": [r["update_s"] for r in its],
+            "median_iteration_s": float(np.median(
+                [r["iteration_s"] for r in its])),
+            "median_sample_s": float(np.median([r["sample_s"] for r in its])),
+            "median_update_s": float(np.median([r["update_s"] for r in its])),
+            "env_steps_total": steps,
+            "env_steps_per_s": steps / total_s if total_s else None,
+            "episode_return_mean": [r["result"].get("episode_return_mean")
+                                    for r in its]}
+
+
+def rl_cnn_update(torch, np):
+    """A PPO update of the Catalog's Nature CNN module (84x84x4 frames, 6
+    actions) on a seeded batch: loss and gradients on the card against
+    the same inputs on the CPU, then the median of RL_CNN_UPDATES timed
+    ``update_minibatch`` calls and the peak memory."""
+    from ray_tpu_torch.parallel.train_step import _leaves, value_and_grad
+    from ray_tpu_torch.rl import models as rlm
+    from ray_tpu_torch.rl.algorithms.ppo import make_ppo_loss
+    from ray_tpu_torch.rl.env import EnvSpec
+    from ray_tpu_torch.rl.learner import Learner
+    from ray_tpu_torch.rl.rl_module import Catalog
+
+    spec = EnvSpec(obs_shape=(84, 84, 4), num_actions=6)
+    params = Catalog.build_params(spec, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    n = RL_CNN_BATCH
+    batch = {"obs": rng.uniform(0, 1, (n, 84, 84, 4)).astype(np.float32),
+             "actions": rng.integers(0, 6, n).astype(np.int32),
+             "logp": rng.normal(-1.8, 0.1, n).astype(np.float32),
+             "advantages": rng.normal(size=n).astype(np.float32),
+             "value_targets": rng.normal(size=n).astype(np.float32)}
+    loss_fn = make_ppo_loss(spec, 0.2, 0.5, 0.01)
+    grads, losses = {}, {}
+    for dev in ("cpu", DEV):
+        p = rlm.params_to_device(params, torch.device(dev))
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        (loss, _), g = value_and_grad(lambda q: loss_fn(q, b, None), p,
+                                      has_aux=True)
+        grads[dev] = {k: v.cpu() for k, v in g.items()}
+        losses[dev] = float(loss)
+    rel = {k: float((grads[DEV][k] - want).abs().max()
+                    / (want.abs().max() + 1e-12))
+           for k, want in grads["cpu"].items()}
+    learner = Learner(params, loss_fn, 3e-4, grad_clip=0.5, device=DEV)
+    dev_batch = {k: torch.as_tensor(v, device=DEV) for k, v in batch.items()}
+    learner.update_minibatch(dev_batch)          # warm: cuDNN's plans
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(RL_CNN_UPDATES):
+        t0 = time.perf_counter()
+        m = learner.update_minibatch(dev_batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"config": "Catalog cnn (Nature stack, 512 features), PPO loss, "
+                     "Adam lr 3e-4, clip 0.5, fp32, TF32 off",
+           "obs_shape": list(spec.obs_shape), "num_actions": 6, "batch": n,
+           "num_params": rlm.num_params(params),
+           "loss_cpu": losses["cpu"], "loss_device": losses[DEV],
+           "grad_rel_err_max": max(rel.values()),
+           "grad_rel_err": rel, "update_ms": ms,
+           "median_update_ms": float(np.median(ms)),
+           "frames_per_s": n * 1e3 / float(np.median(ms)),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "last_loss": float(m["loss"])}
+    check(abs(losses[DEV] - losses["cpu"])
+          <= RL_CNN_REL_TOL * max(1.0, abs(losses["cpu"])),
+          f"CNN loss on {DEV} {losses[DEV]} against cpu {losses['cpu']}")
+    bad = {k: v for k, v in rel.items() if not v <= RL_CNN_REL_TOL}
+    check(not bad, f"CNN gradients on {DEV} against cpu: {bad}")
+    check(set(_leaves(params)) == set(rel), "a CNN leaf has no gradient")
+    return out
+
+
+def rl_busy_share(torch, iteration):
+    """One profiled ``iteration()`` (after two warm ones): device kernel ms
+    against the profiled wall, and against the mean wall of three
+    unprofiled iterations (the profiler slows the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        iteration()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        iteration()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        iteration()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per_kernel = device_kernel_ms(torch, prof, 1)
+    busy = sum(per_kernel.values())
+    cuda = torch.autograd.DeviceType.CUDA
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {"iteration_ms_unprofiled": plain_ms,
+            "iteration_ms_profiled": wall_ms,
+            "device_busy_ms": busy if busy else "not measured",
+            "device_busy_share_of_profiled": busy / wall_ms if busy else
+            "not measured",
+            "device_busy_share_of_unprofiled": busy / plain_ms if busy else
+            "not measured",
+            "device_kernels": sum(1 for e in prof.events()
+                                  if e.device_type == cuda),
+            "top_kernels_ms": [[n[:80], t] for n, t in top]}
+
+
+def rl_phase(torch, np, flash, smi):
+    """The on-policy RL stack on the card in one process: the tuned PPO
+    example through ``run_train`` until it learns, the other on-policy
+    configs, a Nature-CNN PPO update against the CPU, and the fused
+    iteration against the host loop. No flash kernel may launch."""
+    from ray_tpu_torch.parallel.train_step import _leaves
+    from ray_tpu_torch.rl import anakin
+    from ray_tpu_torch.rl import train as rltrain
+
+    zero_launches(flash)
+    # 1. tuned PPO until the yaml's stop values
+    clock, last, log = rl_run(torch, np, rltrain, "PPO", "CartPole-v1",
+                              RL_TUNED_PPO,
+                              RL_TUNED_PPO_STOP["training_iteration"],
+                              RL_TUNED_PPO_STOP["episode_return_mean"])
+    summary = rl_summary(np, clock)
+    returns = [r for r in summary["episode_return_mean"]
+               if r is not None and np.isfinite(r)]
+    best = max(returns) if returns else float("nan")
+    emit({"phase": "rl", "part": "tuned_ppo", "nvidia_smi": smi,
+          "source": "ray_tpu_torch/rl/tuned_examples/cartpole-ppo.yaml",
+          "config": RL_TUNED_PPO, "stop": RL_TUNED_PPO_STOP,
+          "best_episode_return_mean": best, **summary,
+          "last_result": last, "log_tail": log[-400:]})
+    check(best > RL_LEARN_THRESHOLD,
+          f"tuned PPO did not learn CartPole: best return {best} "
+          f"<= {RL_LEARN_THRESHOLD}")
+    # 2. the other on-policy configs
+    for name, run, env, config, iters, per_iter in RL_OTHERS:
+        clock, last, _ = rl_run(torch, np, rltrain, run, env, config, iters)
+        summary = rl_summary(np, clock)
+        totals = [r["result"]["env_steps_total"] for r in clock.iters]
+        steps = [b - a for a, b in zip([0] + totals, totals)]
+        finite = all(np.isfinite(v) for r in clock.iters
+                     for k, v in r["result"].items()
+                     if isinstance(v, float) and k != "episode_return_mean")
+        before = _leaves(clock.initial)
+        after = _leaves(clock.to_numpy(clock.algo.get_params()))
+        moved = {"params": any(np.any(after[k] != before[k])
+                               for k in after)}
+        if "log_std" in after:
+            moved["log_std"] = bool(np.any(after["log_std"]
+                                           != before["log_std"]))
+        emit({"phase": "rl", "part": name, "nvidia_smi": smi, "run": run,
+              "env": env, "config": config, "env_steps_per_iteration": steps,
+              "params_moved": moved, "all_metrics_finite": finite,
+              **summary, "last_result": last})
+        check(steps == [per_iter] * iters,
+              f"{name}: env steps per iteration {steps}, want {per_iter}")
+        check(finite, f"{name}: a non-finite metric")
+        check(all(moved.values()), f"{name}: params did not move {moved}")
+    # 3. the Nature CNN update
+    emit({"phase": "rl", "part": "nature_cnn_update", "nvidia_smi": smi,
+          **rl_cnn_update(torch, np)})
+    # 4. fused against host loop
+    bench = anakin.bench_fused_vs_host(device=DEV)
+    fused = anakin.AnakinRunner(anakin.AnakinConfig(), device=DEV)
+    emit({"phase": "rl", "part": "fused_vs_host", "nvidia_smi": smi,
+          **bench, "host_leg_profiled": rl_busy_share(
+              torch, anakin.make_host_leg(anakin.AnakinConfig(), DEV)),
+          "fused_leg_profiled": rl_busy_share(torch,
+                                              lambda: fused.train(1))})
+    check(bench["fused_compile_count"] == 1,
+          f"fused compile_count {bench['fused_compile_count']}")
+    # 5. nothing on the RL path reaches flash attention
+    launches = read_launches(flash)
+    emit({"phase": "rl", "part": "launches", "nvidia_smi": smi,
+          "flash_launches": launches})
+    check(all(v == 0 for v in launches.values()),
+          f"a flash kernel launched on the RL path: {launches}")
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- mesh
 
 MESH_STEPS, MESH_DRIVER_K = 8, 4
@@ -3667,8 +3986,8 @@ def seqpipe_phase(torch, np, tllama, tts, tflops, flash, smi):
 
 
 PHASES = ("kernel", "bwd", "integration", "grad", "serve", "llm", "spec",
-          "moe", "train", "driver", "moe_train", "rlhf", "anakin", "vit",
-          "mesh", "seqpipe")
+          "moe", "train", "driver", "moe_train", "rlhf", "anakin", "rl",
+          "vit", "mesh", "seqpipe")
 
 
 def kernel_entry(name, source, replaces, launches, head, part=None,
@@ -3777,6 +4096,8 @@ def main(argv=None) -> int:
                                       flash)
     if "anakin" in only:
         anakin_phase(torch, np, flash)
+    if "rl" in only:
+        rl_phase(torch, np, flash, smi)
     if "vit" in only:
         vit_phase(torch, np, tts, tflops, flash)
     if "mesh" in only:

@@ -6,8 +6,9 @@ leading [L] axis; the port keeps that structure and orientation, so
 conversion is a checked copy of each leaf the config's family lists
 (``cfg.param_shapes()``) and one cast to the compute dtype. The same
 holds for the RLHF reward model (a Llama trunk plus a head,
-``ray_tpu/rl/rlhf/models.py``), the RL policy MLPs (``ray_tpu/rl/
-models.py``) and ViT (``ray_tpu/models/vit.py``). Every converter raises
+``ray_tpu/rl/rlhf/models.py``), the RL policies (``ray_tpu/rl/models.py``
+and ``rl_module.py``'s Catalog: heads, conv encoder, ``log_std``) and ViT
+(``ray_tpu/models/vit.py``). Every converter raises
 on a missing leaf or a shape the config does not give.
 """
 
@@ -73,18 +74,50 @@ def reward_params_from_jax(np_params: dict, cfg: LlamaConfig, *,
                                   dtype=dtype), **head}
 
 
-def policy_params_from_jax(np_params: dict, spec, hidden: Sequence[int], *,
-                           device: DeviceLike = None) -> dict:
-    """A flat discrete policy ``{"pi": {"layers": [{"w", "b"}, ...]},
-    "vf": ...}`` (``ray_tpu/rl/models.py:init_policy``) in float32."""
-    from ray_tpu_torch.rl.models import policy_dims, policy_param_shapes
+def _tree_from_paths(flat: Dict[str, torch.Tensor]) -> dict:
+    """Nest ``{"a/0/b": t}`` back into ``{"a": [{"b": t}]}``: a part of
+    digits indexes a list."""
+    root: dict = {}
+    for name, leaf in flat.items():
+        parts = name.split("/")
+        node = root
+        for part, nxt in zip(parts[:-1], parts[1:]):
+            key = int(part) if isinstance(node, list) else part
+            child = [] if nxt.isdigit() else {}
+            if isinstance(node, list):
+                while len(node) <= key:
+                    node.append(None)
+                if node[key] is None:
+                    node[key] = child
+            else:
+                node.setdefault(key, child)
+            node = node[key]
+        last = parts[-1]
+        if isinstance(node, list):
+            while len(node) <= int(last):
+                node.append(None)
+            node[int(last)] = leaf
+        else:
+            node[last] = leaf
+    return root
 
-    flat = _checked(np_params, policy_param_shapes(spec, hidden),
-                    resolve_device(device), torch.float32)
-    return {head: {"layers": [{"w": flat[f"{head}/layers/{i}/w"],
-                               "b": flat[f"{head}/layers/{i}/b"]}
-                              for i in range(len(dims) - 1)]}
-            for head, dims in policy_dims(spec, hidden).items()}
+
+def policy_params_from_jax(np_params: dict, spec,
+                           hidden: Sequence[int] = (64, 64), *,
+                           activation: str = "tanh", encoder_out: int = 512,
+                           device: DeviceLike = None) -> dict:
+    """A policy tree that ``ray_tpu/rl/models.py:init_policy`` or the
+    Catalog's ``mlp``/``cnn`` builders make, in float32: the heads, and
+    where the spec asks, the conv encoder ``enc`` (HWIO weights, stride
+    leaves ``s``), ``log_std``, and for ``activation="relu"`` the ``act``
+    markers. Every leaf is shape-checked against
+    ``policy_param_shapes``."""
+    from ray_tpu_torch.rl.models import policy_param_shapes
+
+    shapes = policy_param_shapes(spec, hidden, activation=activation,
+                                 encoder_out=encoder_out)
+    return _tree_from_paths(_checked(np_params, shapes,
+                                     resolve_device(device), torch.float32))
 
 
 def vit_params_from_jax(np_params: dict, cfg, *, device: DeviceLike = None,

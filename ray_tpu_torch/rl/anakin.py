@@ -19,14 +19,15 @@ state update in place.
 Eager PyTorch compiles nothing. ``AnakinRunner.compile_count()`` counts
 the distinct carry signatures (leaf shapes and dtypes) the iteration has
 run, which is what JAX's jit cache would be keyed on: 1 once warm, as
-JAX's. ``bench_fused_vs_host`` needs the host-loop ``EnvRunner``, not
-ported yet.
+JAX's. ``bench_fused_vs_host`` times the fused iteration against the
+host-loop ``EnvRunner`` path doing the same work.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +37,7 @@ from ray_tpu_torch.parallel.train_step import Adam, _leaves, value_and_grad
 from ray_tpu_torch.rl import models
 from ray_tpu_torch.rl.algorithms.ppo import make_ppo_loss
 from ray_tpu_torch.rl.device_env import make_device_env
+from ray_tpu_torch.rl.env_runner import EnvRunner
 
 
 @dataclasses.dataclass
@@ -108,10 +110,7 @@ def make_anakin_step(cfg: AnakinConfig, env_cls=None):
         batch = {"obs": flat(obs_t), "actions": flat(act_t),
                  "logp": flat(logp_t), "advantages": flat(adv_t),
                  "value_targets": flat(ret_t)}
-        for _ in range(cfg.num_epochs):
-            (loss, aux), grads = value_and_grad(
-                lambda p: loss_fn(p, batch, None), params, has_aux=True)
-            opt.update(params, grads, opt_state)
+        loss, aux = _ppo_epochs(cfg, loss_fn, opt, params, opt_state, batch)
         metrics = {
             "reward_mean_per_step": torch.mean(rew_t),
             "episodes_done": torch.sum(done_t),
@@ -123,6 +122,16 @@ def make_anakin_step(cfg: AnakinConfig, env_cls=None):
         return (params, opt_state, env_state, obs, gen), metrics
 
     return step
+
+
+def _ppo_epochs(cfg: AnakinConfig, loss_fn, opt: Adam, params, opt_state,
+                batch):
+    """``cfg.num_epochs`` full-batch steps in place; the last (loss, aux)."""
+    for _ in range(cfg.num_epochs):
+        (loss, aux), grads = value_and_grad(
+            lambda p: loss_fn(p, batch, None), params, has_aux=True)
+        opt.update(params, grads, opt_state)
+    return loss, aux
 
 
 def _signature(carry) -> Tuple:
@@ -187,3 +196,98 @@ class AnakinRunner:
         """Wait for the device to finish the carry (a timing boundary)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+# ---------------------------------------------------------------------------
+# A/B bench: fused Anakin vs the host-loop EnvRunner path
+# ---------------------------------------------------------------------------
+
+
+def make_host_leg(cfg: AnakinConfig, device: DeviceLike = None
+                  ) -> Callable[[], None]:
+    """The host-loop leg of ``bench_fused_vs_host``: one call runs one PPO
+    iteration the existing architecture's way. ``EnvRunner.sample`` steps
+    the numpy CartPole under per-step inference on the device (one
+    launch sequence and one device-to-host read of the actions a step,
+    numpy GAE), then the batch goes to the device for a separately
+    launched update of ``num_epochs`` full-batch steps with the fused
+    leg's loss and optimizer. Params and optimizer state persist across
+    calls."""
+    device = resolve_device(device)
+    host = EnvRunner("CartPole-v1", cfg.num_envs, cfg.rollout_len,
+                     seed=cfg.seed, device=device)
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    params = models.init_policy(gen, host.spec, hidden=cfg.hidden)
+    loss_fn = make_ppo_loss(host.spec, cfg.clip_param, cfg.vf_coeff,
+                            cfg.entropy_coeff)
+    opt = Adam(cfg.lr, grad_clip=cfg.grad_clip)
+    opt_state = opt.init(params)
+
+    def host_iter() -> None:
+        frag = host.sample(params)
+        batch = {k: torch.as_tensor(frag[k], device=device)
+                 for k in ("obs", "actions", "logp", "advantages",
+                           "value_targets")}
+        _ppo_epochs(cfg, loss_fn, opt, params, opt_state, batch)
+
+    return host_iter
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def bench_fused_vs_host(*, num_envs: int = 64, rollout_len: int = 32,
+                        iters: int = 20, warmup: int = 3, seed: int = 0,
+                        device: DeviceLike = None) -> Dict[str, Any]:
+    """env-steps/s of the fused Anakin iteration vs the host-loop
+    ``EnvRunner`` path (``make_host_leg``) running the SAME work at the
+    SAME (B, T) shape: rollout, GAE, ``num_epochs`` full-batch PPO updates
+    with the identical loss and optimizer. The fused leg reads nothing
+    back inside an iteration; the host leg reads the actions every env
+    step. ``warmup`` untimed iterations first, then ``iters`` timed, each
+    leg bounded by device syncs. Returns JAX's keys, the rates unrounded
+    (JAX rounds them)."""
+    device = resolve_device(device)
+    cfg = AnakinConfig(num_envs=num_envs, rollout_len=rollout_len,
+                       seed=seed)
+    runner = AnakinRunner(cfg, device=device)
+    runner.train(warmup)
+    runner.block()
+    t0 = time.perf_counter()
+    runner.train(iters)
+    runner.block()
+    fused_s = time.perf_counter() - t0
+    fused_steps = iters * cfg.env_steps_per_iter
+
+    host_iter = make_host_leg(cfg, device)
+    for _ in range(warmup):
+        host_iter()
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        host_iter()
+    _sync(device)
+    host_s = time.perf_counter() - t0
+    host_steps = iters * num_envs * rollout_len
+
+    fused_sps = fused_steps / max(fused_s, 1e-9)
+    host_sps = host_steps / max(host_s, 1e-9)
+    return {
+        "num_envs": num_envs, "rollout_len": rollout_len,
+        "iters": iters, "warmup": warmup,
+        "fused_env_steps_per_s": fused_sps,
+        "host_env_steps_per_s": host_sps,
+        "fused_vs_host_ratio": fused_sps / max(host_sps, 1e-9),
+        "fused_compile_count": runner.compile_count(),
+        "methodology": (
+            "equal work both legs (rollout + GAE + {e}-epoch PPO update "
+            "at B={b}, T={t}): {w} warmup iters then {n} timed; the fused "
+            "leg reads nothing back inside an iteration and is bounded by "
+            "device syncs; the host leg is EnvRunner.sample (per-step "
+            "inference on the device + numpy env + numpy GAE) + a "
+            "separately launched update".format(
+                e=cfg.num_epochs, w=warmup, n=iters, b=num_envs,
+                t=rollout_len)),
+    }

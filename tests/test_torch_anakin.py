@@ -23,6 +23,7 @@ import torch
 from ray_tpu.rl import anakin as janakin
 from ray_tpu.rl import models as jmodels
 from ray_tpu.rl.algorithms.ppo import make_ppo_loss as jmake_ppo_loss
+from ray_tpu.rl.env import EnvSpec as JEnvSpec
 from ray_tpu.rl.jax_env import JaxCartPole
 from ray_tpu_torch.models.convert import (params_to_numpy,
                                           policy_params_from_jax)
@@ -143,9 +144,15 @@ def test_mlp_logits_and_value_match_jax():
     w = own["pi"]["layers"][1]["w"]          # orthogonal, gain sqrt(2)
     torch.testing.assert_close(w.T @ w, 2.0 * torch.eye(16), atol=1e-5,
                                rtol=0)
-    with pytest.raises(NotImplementedError):
-        tmodels.init_policy(torch.Generator(), EnvSpec(obs_dim=3,
-                                                       action_dim=1))
+    # a continuous spec, once refused, now gets JAX's tree (log_std too)
+    cont = tmodels.init_policy(torch.Generator(), EnvSpec(obs_dim=3,
+                                                          action_dim=1),
+                               hidden=HIDDEN)
+    jcont = jmodels.init_policy(jax.random.key(0),
+                                JEnvSpec(obs_dim=3, action_dim=1),
+                                hidden=HIDDEN)
+    assert {k: tuple(v.shape) for k, v in _leaves(cont).items()} == \
+        {k: tuple(v.shape) for k, v in _leaves(_np(jcont)).items()}
 
 
 def test_categorical_sample_draws_from_the_softmax():
@@ -180,8 +187,19 @@ def test_ppo_loss_and_grads_match_jax():
     for k in jaux:
         assert float(taux[k]) == pytest.approx(float(jaux[k]), abs=ATOL), k
     _assert_tree_close({k: g.numpy() for k, g in tg.items()}, jg)
-    with pytest.raises(NotImplementedError):
-        tmake_ppo_loss(EnvSpec(obs_dim=3, action_dim=1), 0.2, 0.5, 0.01)
+    # continuous actions, once refused, now take the Gaussian branch
+    cspec = EnvSpec(obs_dim=4, action_dim=1)
+    jc = jmodels.init_policy(jax.random.key(1),
+                             JEnvSpec(obs_dim=4, action_dim=1), hidden=HIDDEN)
+    tc = policy_params_from_jax(_np(jc), cspec, HIDDEN, device="cpu")
+    cbatch = dict(batch, actions=np.random.default_rng(5).standard_normal(
+        (len(batch["obs"]), 1)).astype(np.float32))
+    jv, _ = jmake_ppo_loss(JEnvSpec(obs_dim=4, action_dim=1), 0.2, 0.5,
+                           0.01)(jc, {k: jnp.asarray(v)
+                                      for k, v in cbatch.items()}, None)
+    tv, _ = tmake_ppo_loss(cspec, 0.2, 0.5, 0.01)(
+        tc, {k: torch.from_numpy(v) for k, v in cbatch.items()}, None)
+    assert float(tv) == pytest.approx(float(jv), abs=ATOL)
 
 
 @pytest.mark.parametrize("grad_clip", [None, 0.5])

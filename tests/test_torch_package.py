@@ -22,6 +22,7 @@ from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import flash as tflash
 from ray_tpu_torch.parallel import mesh as tmesh
 from ray_tpu_torch.parallel import train_step as tts
+from ray_tpu_torch import rl as trl
 from ray_tpu_torch.rl import anakin as tanakin
 from ray_tpu_torch.rl.rlhf import pipeline as tpipe
 from ray_tpu_torch.serve import llm as tllm
@@ -73,6 +74,16 @@ def test_port_imports_no_jax_and_no_ray_tpu():
             "ray_tpu_torch/rl/anakin.py",
             "ray_tpu_torch/rl/algorithms/__init__.py",
             "ray_tpu_torch/rl/algorithms/ppo.py",
+            "ray_tpu_torch/rl/algorithms/pg.py",
+            "ray_tpu_torch/rl/algorithms/a2c.py",
+            "ray_tpu_torch/rl/algorithms/impala.py",
+            "ray_tpu_torch/rl/algorithms/appo.py",
+            "ray_tpu_torch/rl/connectors.py", "ray_tpu_torch/rl/config.py",
+            "ray_tpu_torch/rl/rl_module.py",
+            "ray_tpu_torch/rl/env_runner.py",
+            "ray_tpu_torch/rl/learner.py", "ray_tpu_torch/rl/algorithm.py",
+            "ray_tpu_torch/rl/train.py", "ray_tpu_torch/tune/__init__.py",
+            "ray_tpu_torch/tune/trainable.py",
             "ray_tpu_torch/rl/rlhf/__init__.py",
             "ray_tpu_torch/rl/rlhf/models.py",
             "ray_tpu_torch/rl/rlhf/pipeline.py",
@@ -148,6 +159,18 @@ def test_entry_points_default_to_cuda():
         tanakin.AnakinRunner()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tvit.init_params(tvit.PRESETS["debug"], generator=torch.Generator())
+    # the on-policy RL stack: the algorithm, its learner and runners, the
+    # Catalog, the training entry point
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trl.PPOConfig().build()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trl.Learner({"w": np.zeros(2, np.float32)}, None, 1e-3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trl.EnvRunner("CartPole-v1", 2, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trl.Catalog.build(trl.EnvSpec(obs_dim=4, num_actions=2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tanakin.bench_fused_vs_host()
     # the mesh, sharded init and the process group: cuda and nccl
     # unless the caller asks for the CPU and gloo
     with pytest.raises(RuntimeError, match="no CUDA device"):
