@@ -3157,7 +3157,8 @@ RL_CNN_REL_TOL = 1e-4
 
 class RLClock:
     """Patches the RL classes while entered: for each ``train()`` call of
-    any algorithm, the host seconds spent in ``EnvRunner.sample`` and in
+    any algorithm (R2D2's too), the host seconds spent sampling
+    (``EnvRunner.sample``, R2D2's ``_collect``) and in
     the Learner's updates (each timed call ends with a device sync, so
     queued work is charged to the call that launched it), the iteration's
     seconds and its result; the first algorithm trained and its params
@@ -3165,20 +3166,22 @@ class RLClock:
 
     def __init__(self, torch):
         from ray_tpu_torch.models.convert import params_to_numpy
-        from ray_tpu_torch.rl.algorithm import Algorithm
+        from ray_tpu_torch.rl.algorithms.r2d2 import R2D2
         from ray_tpu_torch.rl.env_runner import EnvRunner
         from ray_tpu_torch.rl.learner import Learner
+        from ray_tpu_torch.tune.trainable import Trainable
 
         self.torch, self.to_numpy = torch, params_to_numpy
         self.iters, self.algo, self.initial = [], None, None
         self._busy = False
-        self._targets = [(Algorithm, "train", None),
+        self._targets = [(Trainable, "train", None),
                          (EnvRunner, "sample", "sample_s"),
+                         (R2D2, "_collect", "sample_s"),
                          (Learner, "update", "update_s"),
                          (Learner, "update_minibatch", "update_s")]
         self._saved = []
 
-    def _wrap(self, orig, key):
+    def _wrap(self, orig, key, name):
         clock = self
 
         def timed(obj, *args, **kwargs):
@@ -3186,13 +3189,15 @@ class RLClock:
                 if clock.algo is None:
                     clock.algo = obj
                     clock.initial = clock.to_numpy(obj.get_params())
-                rec = {"sample_s": 0.0, "update_s": 0.0}
+                rec = {"sample_s": 0.0, "update_s": 0.0, "updates": 0}
                 clock.iters.append(rec)
                 t0 = time.perf_counter()
                 rec["result"] = orig(obj, *args, **kwargs)
                 clock.torch.cuda.synchronize()
                 rec["iteration_s"] = time.perf_counter() - t0
                 return rec["result"]
+            if name == "update_minibatch" and clock.iters:
+                clock.iters[-1]["updates"] += 1
             if clock._busy or not clock.iters:
                 return orig(obj, *args, **kwargs)
             clock._busy = True
@@ -3209,7 +3214,7 @@ class RLClock:
     def __enter__(self):
         for cls, name, key in self._targets:
             self._saved.append((cls, name, cls.__dict__.get(name)))
-            setattr(cls, name, self._wrap(getattr(cls, name), key))
+            setattr(cls, name, self._wrap(getattr(cls, name), key, name))
         return self
 
     def __exit__(self, *exc):
@@ -3242,6 +3247,7 @@ def rl_summary(np, clock):
             "iteration_s": [r["iteration_s"] for r in its],
             "sample_s": [r["sample_s"] for r in its],
             "update_s": [r["update_s"] for r in its],
+            "updates": [r["updates"] for r in its],
             "median_iteration_s": float(np.median(
                 [r["iteration_s"] for r in its])),
             "median_sample_s": float(np.median([r["sample_s"] for r in its])),
@@ -3252,12 +3258,83 @@ def rl_summary(np, clock):
                                     for r in its]}
 
 
+class FixedDraws:
+    """While entered, ``models.normal`` and ``models.uniform`` record
+    their draws (from a CPU generator seeded 0) on the first pass and
+    return the recorded draws, moved to ``device``, on the ``replay``
+    pass: the card's update sees the CPU's noise."""
+
+    def __init__(self, torch, rlm):
+        self.torch, self.rlm, self.draws = torch, rlm, []
+        self.gen = torch.Generator().manual_seed(0)
+        self._saved = None
+        self._replay = None
+
+    def replay(self, device):
+        self._replay = (iter(self.draws), device)
+
+    def _take(self, make):
+        if self._replay is None:
+            d = make()
+            self.draws.append(d)
+            return d
+        it, device = self._replay
+        return next(it).to(device)
+
+    def __enter__(self):
+        rlm, gen = self.rlm, self.gen
+        self._saved = (rlm.normal, rlm.uniform)
+        normal, uniform = self._saved
+        rlm.normal = lambda g, shape: self._take(lambda: normal(gen, shape))
+        rlm.uniform = lambda g, shape, low, high: self._take(
+            lambda: uniform(gen, shape, low, high))
+        return self
+
+    def __exit__(self, *exc):
+        self.rlm.normal, self.rlm.uniform = self._saved
+
+
+def rl_update_vs_cpu(torch, np, name, loss_fn, params, batch):
+    """One update's loss and gradients of ``loss_fn`` on the card against
+    the CPU on the same params, batch and noise (fp32, TF32 off): max
+    |diff| over max |value| per leaf, within RL_CNN_REL_TOL."""
+    from ray_tpu_torch.parallel.train_step import value_and_grad
+    from ray_tpu_torch.rl import models as rlm
+
+    grads, losses = {}, {}
+    with FixedDraws(torch, rlm) as draws:
+        for dev in ("cpu", DEV):
+            if dev != "cpu":
+                draws.replay(torch.device(dev))
+            p = rlm.tree_map(lambda t: t.detach().to(dev, copy=True),
+                             params)
+            b = {k: torch.as_tensor(np.asarray(v), device=dev)
+                 for k, v in batch.items()}
+            (loss, _), g = value_and_grad(lambda q: loss_fn(q, b, None), p,
+                                          has_aux=True)
+            grads[dev] = {k: v.cpu() for k, v in g.items()}
+            losses[dev] = float(loss)
+    rel = {k: float((grads[DEV][k] - want).abs().max()
+                    / (want.abs().max() + 1e-12)) if want.any()
+           else float(grads[DEV][k].abs().max())
+           for k, want in grads["cpu"].items()}
+    out = {"loss_cpu": losses["cpu"], "loss_device": losses[DEV],
+           "noise_draws": len(draws.draws),
+           "grad_rel_err_max": max(rel.values()), "grad_rel_err": rel}
+    check(abs(losses[DEV] - losses["cpu"])
+          <= RL_CNN_REL_TOL * max(1.0, abs(losses["cpu"])),
+          f"{name} loss on {DEV} {losses[DEV]} against cpu {losses['cpu']}")
+    bad = {k: v for k, v in rel.items() if not v <= RL_CNN_REL_TOL}
+    check(not bad, f"{name} gradients on {DEV} against cpu: {bad}")
+    return out
+
+
 def rl_cnn_update(torch, np):
     """A PPO update of the Catalog's Nature CNN module (84x84x4 frames, 6
     actions) on a seeded batch: loss and gradients on the card against
     the same inputs on the CPU, then the median of RL_CNN_UPDATES timed
     ``update_minibatch`` calls and the peak memory."""
-    from ray_tpu_torch.parallel.train_step import _leaves, value_and_grad
+    from ray_tpu_torch.parallel.train_step import _leaves
     from ray_tpu_torch.rl import models as rlm
     from ray_tpu_torch.rl.algorithms.ppo import make_ppo_loss
     from ray_tpu_torch.rl.env import EnvSpec
@@ -3274,17 +3351,7 @@ def rl_cnn_update(torch, np):
              "advantages": rng.normal(size=n).astype(np.float32),
              "value_targets": rng.normal(size=n).astype(np.float32)}
     loss_fn = make_ppo_loss(spec, 0.2, 0.5, 0.01)
-    grads, losses = {}, {}
-    for dev in ("cpu", DEV):
-        p = rlm.params_to_device(params, torch.device(dev))
-        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        (loss, _), g = value_and_grad(lambda q: loss_fn(q, b, None), p,
-                                      has_aux=True)
-        grads[dev] = {k: v.cpu() for k, v in g.items()}
-        losses[dev] = float(loss)
-    rel = {k: float((grads[DEV][k] - want).abs().max()
-                    / (want.abs().max() + 1e-12))
-           for k, want in grads["cpu"].items()}
+    vs_cpu = rl_update_vs_cpu(torch, np, "CNN", loss_fn, params, batch)
     learner = Learner(params, loss_fn, 3e-4, grad_clip=0.5, device=DEV)
     dev_batch = {k: torch.as_tensor(v, device=DEV) for k, v in batch.items()}
     learner.update_minibatch(dev_batch)          # warm: cuDNN's plans
@@ -3299,20 +3366,13 @@ def rl_cnn_update(torch, np):
     out = {"config": "Catalog cnn (Nature stack, 512 features), PPO loss, "
                      "Adam lr 3e-4, clip 0.5, fp32, TF32 off",
            "obs_shape": list(spec.obs_shape), "num_actions": 6, "batch": n,
-           "num_params": rlm.num_params(params),
-           "loss_cpu": losses["cpu"], "loss_device": losses[DEV],
-           "grad_rel_err_max": max(rel.values()),
-           "grad_rel_err": rel, "update_ms": ms,
+           "num_params": rlm.num_params(params), **vs_cpu, "update_ms": ms,
            "median_update_ms": float(np.median(ms)),
            "frames_per_s": n * 1e3 / float(np.median(ms)),
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "last_loss": float(m["loss"])}
-    check(abs(losses[DEV] - losses["cpu"])
-          <= RL_CNN_REL_TOL * max(1.0, abs(losses["cpu"])),
-          f"CNN loss on {DEV} {losses[DEV]} against cpu {losses['cpu']}")
-    bad = {k: v for k, v in rel.items() if not v <= RL_CNN_REL_TOL}
-    check(not bad, f"CNN gradients on {DEV} against cpu: {bad}")
-    check(set(_leaves(params)) == set(rel), "a CNN leaf has no gradient")
+    check(set(_leaves(params)) == set(vs_cpu["grad_rel_err"]),
+          "a CNN leaf has no gradient")
     return out
 
 
@@ -3352,11 +3412,277 @@ def rl_busy_share(torch, iteration):
             "top_kernels_ms": [[n[:80], t] for n, t in top]}
 
 
+# the off-policy tuned examples (copies of JAX's yamls under
+# ray_tpu_torch/rl/tuned_examples/), written out so the card needs no
+# PyYAML. cartpole-dqn runs to its own stop values.
+RL_TUNED_DQN = {"num_env_runners": 1, "num_envs_per_runner": 8,
+                "rollout_fragment_length": 32, "lr": 0.001,
+                "learning_starts": 500, "epsilon_decay_steps": 5000,
+                "prioritized_replay": True, "target_update_freq": 200}
+RL_TUNED_DQN_STOP = {"episode_return_mean": 130, "training_iteration": 80}
+# Neither package learns cartpole-dqn.yaml within its 80 iterations on the
+# CPU (seed 0: JAX's best return 17.17, the port's 19.4, both a random
+# policy's), so the learning gate is JAX's own DQN test config
+# (tests/test_rl_connectors_ope.py:191: up to 40 iterations, stop past
+# 120). On the CPU, seed 0, JAX's run reached 129.6 at iteration 32 and
+# the port's 123.0 at iteration 38 (both passed 80 by iteration 29). The
+# card's exploration draws are neither's, so the gate is 80, below both
+# runs and four times a random policy's return (about 20).
+RL_DQN_GATE = {"num_env_runners": 2, "num_envs_per_runner": 8,
+               "rollout_fragment_length": 32, "lr": 0.0005,
+               "minibatch_size": 64, "buffer_size": 50_000,
+               "learning_starts": 500, "target_update_freq": 200,
+               "epsilon_decay_steps": 8_000, "double_q": True,
+               "updates_per_iter": 64, "seed": 0}
+RL_DQN_GATE_STOP = {"episode_return_mean": 120, "training_iteration": 40}
+RL_DQN_LEARN_THRESHOLD = 80.0
+# (name, run, env, config, iterations, env steps an iteration): each runs
+# past learning_starts and then at least 5 updating iterations; R2D2's
+# buffer reaches its 500 sequences at iteration 15 (CPU, seed 0) and its
+# 200th update (the first target sync) comes 13 updating iterations later
+RL_OFF_POLICY = (
+    ("cartpole-apex-dqn", "APEXDQN", "CartPole-v1",
+     {"num_env_runners": 2, "num_cpus_per_runner": 0.4,
+      "num_envs_per_runner": 8, "rollout_fragment_length": 64,
+      "learning_starts": 500, "updates_per_iter": 32, "minibatch_size": 64,
+      "target_update_freq": 100, "lr": 0.001}, 6, 2 * 8 * 64),
+    ("pendulum-sac", "SAC", "Pendulum-v1",
+     {"num_env_runners": 1, "num_envs_per_runner": 8,
+      "rollout_fragment_length": 32, "connectors": ["mean_std_filter"],
+      "learning_starts": 1000, "minibatch_size": 256, "lr": 0.001},
+     9, 8 * 32),
+    ("pendulum-ddpg", "DDPG", "Pendulum-v1",
+     {"num_env_runners": 1, "num_envs_per_runner": 8,
+      "rollout_fragment_length": 32, "connectors": ["mean_std_filter"],
+      "learning_starts": 1000, "minibatch_size": 256,
+      "exploration_noise": 0.2}, 9, 8 * 32),
+    ("pendulum-td3", "TD3", "Pendulum-v1",
+     {"num_env_runners": 1, "num_envs_per_runner": 8,
+      "rollout_fragment_length": 32, "connectors": ["mean_std_filter"],
+      "learning_starts": 1000, "minibatch_size": 256,
+      "exploration_noise": 0.2}, 9, 8 * 32),
+    ("pendulum-apex-ddpg", "APEXDDPG", "Pendulum-v1",
+     {"num_env_runners": 4, "num_envs_per_runner": 4,
+      "rollout_fragment_length": 32, "learning_starts": 1000,
+      "minibatch_size": 256, "updates_per_iter": 16,
+      "apex_sigma_base": 0.4, "apex_sigma_alpha": 3.0}, 7, 4 * 4 * 32),
+    ("masked-cartpole-r2d2", "R2D2", "CartPoleNoVel-v0",
+     {"num_env_runners": 1, "num_envs_per_runner": 8, "seq_len": 20,
+      "burn_in": 5, "learning_starts": 500, "updates_per_iter": 16},
+     29, 8 * 64))
+RL_OFFLINE_ITERS = 3
+# CQL's probe: tests/test_rl_extras.py:174's one-step dataset and its
+# training (2 iterations of 200 updates, cql_alpha 10)
+RL_CQL_PROBE = {"updates_per_iter": 200, "minibatch_size": 256,
+                "cql_alpha": 10.0}
+
+
+def target_pairs(params):
+    """(online, target) names of an algorithm's params tree."""
+    pairs = [(k, f"{k}_target") for k in params if f"{k}_target" in params]
+    return pairs + ([("q", "target")] if "target" in params else [])
+
+
+def rl_off_policy_checks(np, clock, per_iter, updating_min=None):
+    """The checks of one run: env steps an iteration as configured, every
+    metric finite, online params moved, every target moved (polyak or
+    sync) and sharing no storage with its online net; with
+    ``updating_min``, at least that many iterations updated."""
+    from ray_tpu_torch.parallel.train_step import _leaves
+
+    totals = [r["result"]["env_steps_total"] for r in clock.iters]
+    steps = [b - a for a, b in zip([0] + totals, totals)]
+    finite = all(np.isfinite(v) for r in clock.iters
+                 for k, v in r["result"].items()
+                 if isinstance(v, float) and k != "episode_return_mean")
+    params = clock.algo.get_params()
+    before, after = _leaves(clock.initial), _leaves(
+        clock.to_numpy(params))
+    pairs = target_pairs(params)
+    targets = {t for _, t in pairs}
+    moved = {"params": any(np.any(after[k] != before[k]) for k in after
+                           if k.split("/")[0] not in targets)}
+    shared = []
+    for online, tgt in pairs:
+        moved[tgt] = any(np.any(after[k] != before[k]) for k in after
+                         if k.split("/")[0] == tgt)
+        on, tg = _leaves(params[online]), _leaves(params[tgt])
+        shared += [f"{tgt}/{k}" for k in on
+                   if on[k].untyped_storage().data_ptr()
+                   == tg[k].untyped_storage().data_ptr()]
+    updating = sum(1 for r in clock.iters if "loss" in r["result"]
+                   or "td_abs_mean" in r["result"])
+    out = {"env_steps_per_iteration": steps, "all_metrics_finite": finite,
+           "params_moved": moved, "target_storage_shared": shared,
+           "updating_iterations": updating}
+    name = type(clock.algo).__name__
+    if per_iter is not None:
+        check(steps == [per_iter] * len(steps),
+              f"{name}: env steps per iteration {steps}, want {per_iter}")
+    check(finite, f"{name}: a non-finite metric")
+    check(all(moved.values()), f"{name}: params did not move {moved}")
+    check(not shared, f"{name}: a target shares storage: {shared}")
+    if updating_min is not None:
+        check(updating >= updating_min,
+              f"{name}: {updating} updating iterations, want "
+              f">= {updating_min}")
+    return out
+
+
+def rl_update_ms(clock):
+    """Host ms a minibatch update (its launches and the reads that wait on
+    it, synced at the end of each timed call) over the whole run."""
+    n = sum(r["updates"] for r in clock.iters)
+    return sum(r["update_s"] for r in clock.iters) * 1e3 / n if n else None
+
+
+def rl_json_data(np, data):
+    """A dataset as the JSON lists ``run_train``'s config takes."""
+    return {k: np.asarray(v).tolist() for k, v in data.items()}
+
+
+def rl_off_policy(torch, np, rltrain, smi):
+    """The off-policy families on the card through ``run_train``: the
+    tuned DQN to its stop values and JAX's DQN gate config until it
+    learns, the other six tuned examples, the offline family on the DQN
+    and SAC runs' transitions, CQL's out-of-distribution probe, and one
+    update of each new loss against the CPU."""
+    from ray_tpu_torch.rl.algorithms.dqn import replay_minibatch
+
+    t_part = time.perf_counter()
+    algos = {}
+    # 1. cartpole-dqn to its stop values, then the learning gate
+    for part, config, stop in (("tuned_dqn", RL_TUNED_DQN, RL_TUNED_DQN_STOP),
+                               ("dqn_gate", RL_DQN_GATE, RL_DQN_GATE_STOP)):
+        clock, last, log = rl_run(torch, np, rltrain, "DQN", "CartPole-v1",
+                                  config, stop["training_iteration"],
+                                  stop["episode_return_mean"])
+        summary = rl_summary(np, clock)
+        returns = [r for r in summary["episode_return_mean"]
+                   if r is not None and np.isfinite(r)]
+        best = max(returns) if returns else float("nan")
+        per_iter = (max(1, config["num_env_runners"])
+                    * config["num_envs_per_runner"]
+                    * config["rollout_fragment_length"])
+        rec = {"phase": "rl", "part": part, "nvidia_smi": smi,
+               "config": config, "stop": stop,
+               "best_episode_return_mean": best,
+               "update_ms": rl_update_ms(clock), **summary,
+               **rl_off_policy_checks(np, clock, per_iter),
+               "last_result": last, "log_tail": log[-400:]}
+        if part == "tuned_dqn":
+            rec["source"] = "ray_tpu_torch/rl/tuned_examples/cartpole-dqn.yaml"
+            algos["DQN"] = clock.algo
+            # the busy share of one updating iteration of a fresh run
+            busy = rltrain.get_algorithm_config("DQN").update_from_dict(
+                dict(config)).build(device=DEV)
+            for _ in range(2):   # 512 steps: past learning_starts
+                busy.train()
+            rec["iteration_profiled"] = rl_busy_share(torch, busy.train)
+            busy.stop()
+        else:
+            rec["source"] = "tests/test_rl_connectors_ope.py:191"
+            rec["learn_threshold"] = RL_DQN_LEARN_THRESHOLD
+        emit(rec)
+        if part == "dqn_gate":
+            check(best > RL_DQN_LEARN_THRESHOLD,
+                  f"DQN did not learn CartPole: best return {best} <= "
+                  f"{RL_DQN_LEARN_THRESHOLD}")
+    # 2. the other tuned examples
+    for name, run, env, config, iters, per_iter in RL_OFF_POLICY:
+        clock, last, _ = rl_run(torch, np, rltrain, run, env, config, iters)
+        algos[run] = clock.algo
+        emit({"phase": "rl", "part": name, "nvidia_smi": smi, "run": run,
+              "env": env, "config": config, "update_ms": rl_update_ms(clock),
+              **rl_summary(np, clock),
+              **rl_off_policy_checks(np, clock, per_iter, updating_min=5),
+              "last_result": last})
+    # 3. the offline family on the transitions the card's runs made
+    dqn_buf, sac_buf = algos["DQN"].buffer, algos["SAC"].buffer
+    n = len(dqn_buf)
+    cartpole = {k: v[:n] for k, v in dqn_buf._storage.items()}
+    # the runner's rows are t-major over 8 envs: row i is env i % 8
+    cartpole["env_ids"] = np.arange(n) % RL_TUNED_DQN["num_envs_per_runner"]
+    n = len(sac_buf)
+    pendulum = {k: v[:n] for k, v in sac_buf._storage.items()}
+    for run, env, data in (("BC", "CartPole-v1", cartpole),
+                           ("MARWIL", "CartPole-v1", cartpole),
+                           ("CQL", "Pendulum-v1", pendulum),
+                           ("CRR", "Pendulum-v1", pendulum)):
+        t0 = time.perf_counter()
+        clock, last, _ = rl_run(torch, np, rltrain, run, env,
+                                {"offline_data": rl_json_data(np, data)},
+                                RL_OFFLINE_ITERS)
+        algos[run] = clock.algo
+        emit({"phase": "rl", "part": f"offline_{run.lower()}",
+              "nvidia_smi": smi, "run": run, "env": env,
+              "rows": len(data["rewards"]), "wall_s": time.perf_counter() - t0,
+              **rl_summary(np, clock),
+              **rl_off_policy_checks(np, clock, None), "last_result": last})
+    # CQL's Q on the SAC run's own actions against uniform random ones
+    # (recorded, not gated), then the probe of JAX's test
+    rng = np.random.default_rng(0)
+    cql = algos["CQL"]
+    sac_probe = {"q_dataset_actions": float(cql.q_value(
+        pendulum["obs"], pendulum["actions"]).mean()),
+        "q_uniform_actions": float(cql.q_value(
+            pendulum["obs"], rng.uniform(-2, 2, pendulum["actions"].shape)
+            .astype(np.float32)).mean())}
+    obs = rng.uniform(-1, 1, size=(4000, 3)).astype(np.float32)
+    opt = np.tanh(obs[:, :1])
+    acts = (opt + 0.1 * rng.standard_normal((4000, 1))).astype(np.float32)
+    probe_data = {"obs": obs, "actions": acts,
+                  "rewards": -np.square(acts - opt).sum(-1).astype(
+                      np.float32),
+                  "next_obs": obs, "dones": np.ones(4000, bool)}
+    probe = rltrain.get_algorithm_config("CQL").update_from_dict(
+        dict(RL_CQL_PROBE, offline_data=probe_data)).build(device=DEV)
+    for _ in range(2):
+        m = probe.train()
+    pobs = rng.uniform(-1, 1, size=(256, 3)).astype(np.float32)
+    in_dist = np.tanh(pobs[:, :1])
+    q_in = float(probe.q_value(pobs, in_dist).mean())
+    q_ood = float(probe.q_value(pobs, np.full_like(in_dist, 1.9)).mean())
+    q_rand = float(probe.q_value(pobs, rng.uniform(
+        -2, 2, in_dist.shape).astype(np.float32)).mean())
+    emit({"phase": "rl", "part": "cql_probe", "nvidia_smi": smi,
+          "source": "tests/test_rl_extras.py:187", "config": RL_CQL_PROBE,
+          "q_dataset_actions": q_in, "q_edge_actions": q_ood,
+          "q_uniform_actions": q_rand, "last_result": m,
+          "on_sac_transitions": sac_probe})
+    check(np.isfinite(m["bellman_loss"]), "CQL probe: non-finite loss")
+    check(q_in > q_ood and q_in > q_rand,
+          f"CQL probe: Q on dataset actions {q_in} not above edge {q_ood} "
+          f"and uniform {q_rand} actions")
+    # 4. one update of each new loss on the card against the CPU
+    grads = {}
+    for run in ("DQN", "DDPG", "TD3", "SAC", "R2D2", "MARWIL", "CQL",
+                "CRR"):
+        algo = algos[run]
+        if run in ("DQN", "DDPG", "TD3", "SAC"):
+            batch, _ = replay_minibatch(algo.buffer, algo.config)
+            if run in ("DDPG", "TD3"):
+                batch["do_actor"] = np.ones(1, np.float32)
+        elif run == "R2D2":
+            batch = algo.buffer.sample(algo.config.minibatch_size)
+        elif run == "MARWIL":
+            batch = {k: v[:algo.config.minibatch_size]
+                     for k, v in algo._data.items()}
+        else:
+            batch = algo._minibatch(algo.config.minibatch_size)
+        grads[run] = rl_update_vs_cpu(
+            torch, np, run, algo.learner._loss_fn, algo.get_params(), batch)
+    emit({"phase": "rl", "part": "off_policy_losses_vs_cpu",
+          "nvidia_smi": smi, "tolerance": RL_CNN_REL_TOL, "losses": grads,
+          "off_policy_part_s": time.perf_counter() - t_part})
+
+
 def rl_phase(torch, np, flash, smi):
-    """The on-policy RL stack on the card in one process: the tuned PPO
-    example through ``run_train`` until it learns, the other on-policy
-    configs, a Nature-CNN PPO update against the CPU, and the fused
-    iteration against the host loop. No flash kernel may launch."""
+    """The RL stack on the card in one process: the tuned PPO example
+    through ``run_train`` until it learns, the other on-policy configs, a
+    Nature-CNN PPO update against the CPU, the fused iteration against
+    the host loop, and the off-policy families (``rl_off_policy``). No
+    flash kernel may launch."""
     from ray_tpu_torch.parallel.train_step import _leaves
     from ray_tpu_torch.rl import anakin
     from ray_tpu_torch.rl import train as rltrain
@@ -3416,7 +3742,9 @@ def rl_phase(torch, np, flash, smi):
                                               lambda: fused.train(1))})
     check(bench["fused_compile_count"] == 1,
           f"fused compile_count {bench['fused_compile_count']}")
-    # 5. nothing on the RL path reaches flash attention
+    # 5. the off-policy families
+    rl_off_policy(torch, np, rltrain, smi)
+    # 6. nothing on the RL path reaches flash attention
     launches = read_launches(flash)
     emit({"phase": "rl", "part": "launches", "nvidia_smi": smi,
           "flash_launches": launches})

@@ -7,7 +7,9 @@ conversion is a checked copy of each leaf the config's family lists
 (``cfg.param_shapes()``) and one cast to the compute dtype. The same
 holds for the RLHF reward model (a Llama trunk plus a head,
 ``ray_tpu/rl/rlhf/models.py``), the RL policies (``ray_tpu/rl/models.py``
-and ``rl_module.py``'s Catalog: heads, conv encoder, ``log_std``) and ViT
+and ``rl_module.py``'s Catalog: heads, conv encoder, ``log_std``), the
+off-policy and recurrent RL algorithms' trees (checked against the
+port's own init of the same config) and ViT
 (``ray_tpu/models/vit.py``). Every converter raises
 on a missing leaf or a shape the config does not give.
 """
@@ -116,6 +118,26 @@ def policy_params_from_jax(np_params: dict, spec,
 
     shapes = policy_param_shapes(spec, hidden, activation=activation,
                                  encoder_out=encoder_out)
+    return _tree_from_paths(_checked(np_params, shapes,
+                                     resolve_device(device), torch.float32))
+
+
+def rl_params_from_jax(np_params: dict, like, *,
+                       device: DeviceLike = None) -> dict:
+    """The params tree of an off-policy or recurrent RL algorithm from
+    JAX's numpy tree, in float32: DQN's ``{q, target}``, DDPG's and TD3's
+    ``{pi, q1[, q2], *_target}``, SAC's, CQL's and CRR's ``{pi, q1, q2,
+    q1_target, q2_target[, log_alpha]}``, R2D2's ``{q, target}`` with the
+    GRU's ``wx``, ``wh``, ``b``. ``like`` is a tree the port's own init
+    made for the same config (an algorithm's ``get_params()``): every leaf
+    it has is copied from ``np_params`` and shape-checked against it, on
+    ``device`` (``like``'s device unless given)."""
+    from ray_tpu_torch.parallel.train_step import _leaves
+
+    leaves = _leaves(like)
+    shapes = {name: tuple(t.shape) for name, t in leaves.items()}
+    if device is None:
+        device = next(iter(leaves.values())).device
     return _tree_from_paths(_checked(np_params, shapes,
                                      resolve_device(device), torch.float32))
 

@@ -1,8 +1,10 @@
-"""Reinforcement learning on the port: the on-policy RL stack (numpy envs,
-connectors, RLModule and Catalog, EnvRunner, Learner, Algorithm; PPO, PG,
-A2C, IMPALA and APPO), the fused PPO iteration and RLHF. One process, one
-device: JAX's actor layer (``LearnerGroup``, the policy server) is not
-ported."""
+"""Reinforcement learning on the port: the RL stack (numpy envs,
+connectors, RLModule and Catalog, EnvRunner, Learner, Algorithm, replay
+buffers, off-policy estimators) with the on-policy (PPO, PG, A2C, IMPALA,
+APPO), value-based (DQN, SimpleQ, Ape-X DQN, R2D2), continuous (DDPG,
+TD3, SAC, Ape-X DDPG) and offline (BC, MARWIL, CQL, CRR) algorithms, the
+fused PPO iteration and RLHF. One process, one device: JAX's actor layer
+(``LearnerGroup``, the policy server) is not ported."""
 
 from ray_tpu_torch.rl.algorithm import Algorithm  # noqa: F401
 from ray_tpu_torch.rl.algorithms import (  # noqa: F401
@@ -10,12 +12,37 @@ from ray_tpu_torch.rl.algorithms import (  # noqa: F401
     A2CConfig,
     APPO,
     APPOConfig,
+    ApexDDPG,
+    ApexDDPGConfig,
+    ApexDQN,
+    ApexDQNConfig,
+    BC,
+    BCConfig,
+    CQL,
+    CQLConfig,
+    CRR,
+    CRRConfig,
+    DDPG,
+    DDPGConfig,
+    DQN,
+    DQNConfig,
     IMPALA,
     IMPALAConfig,
+    MARWIL,
+    MARWILConfig,
+    MaskedCartPole,
     PG,
     PGConfig,
     PPO,
     PPOConfig,
+    R2D2,
+    R2D2Config,
+    SAC,
+    SACConfig,
+    SimpleQ,
+    SimpleQConfig,
+    TD3,
+    TD3Config,
 )
 from ray_tpu_torch.rl.config import AlgorithmConfig  # noqa: F401
 from ray_tpu_torch.rl.connectors import (  # noqa: F401
@@ -35,7 +62,12 @@ from ray_tpu_torch.rl.env import (  # noqa: F401
     register_env,
 )
 from ray_tpu_torch.rl.env_runner import EnvRunner, compute_gae  # noqa: F401
+from ray_tpu_torch.rl import ope  # noqa: F401
 from ray_tpu_torch.rl.learner import Learner, LearnerGroup  # noqa: F401
+from ray_tpu_torch.rl.replay_buffer import (  # noqa: F401
+    PrioritizedReplayBuffer,
+    ReplayBuffer,
+)
 from ray_tpu_torch.rl.rl_module import (  # noqa: F401
     Catalog,
     ModuleSpec,

@@ -1,10 +1,44 @@
-"""The on-policy RL algorithms: PPO, PG, A2C, IMPALA (V-trace) and APPO."""
+"""The RL algorithms of the port: on-policy (PPO, PG, A2C, IMPALA with
+V-trace, APPO), value-based (DQN, SimpleQ, Ape-X DQN, R2D2), continuous
+control (DDPG, TD3, SAC, Ape-X DDPG) and offline (BC, MARWIL, CQL, CRR)."""
 
 from ray_tpu_torch.rl.algorithms.a2c import A2C, A2CConfig  # noqa: F401
+from ray_tpu_torch.rl.algorithms.apex import (  # noqa: F401
+    ApexDDPG,
+    ApexDDPGConfig,
+    ApexDQN,
+    ApexDQNConfig,
+)
 from ray_tpu_torch.rl.algorithms.appo import APPO, APPOConfig  # noqa: F401
+from ray_tpu_torch.rl.algorithms.cql import CQL, CQLConfig  # noqa: F401
+from ray_tpu_torch.rl.algorithms.crr import CRR, CRRConfig  # noqa: F401
+from ray_tpu_torch.rl.algorithms.ddpg import (  # noqa: F401
+    DDPG,
+    DDPGConfig,
+    TD3,
+    TD3Config,
+)
+from ray_tpu_torch.rl.algorithms.dqn import (  # noqa: F401
+    DQN,
+    DQNConfig,
+    SimpleQ,
+    SimpleQConfig,
+)
 from ray_tpu_torch.rl.algorithms.impala import (  # noqa: F401
     IMPALA,
     IMPALAConfig,
 )
+from ray_tpu_torch.rl.algorithms.offline import (  # noqa: F401
+    BC,
+    BCConfig,
+    MARWIL,
+    MARWILConfig,
+)
 from ray_tpu_torch.rl.algorithms.pg import PG, PGConfig  # noqa: F401
 from ray_tpu_torch.rl.algorithms.ppo import PPO, PPOConfig  # noqa: F401
+from ray_tpu_torch.rl.algorithms.r2d2 import (  # noqa: F401
+    MaskedCartPole,
+    R2D2,
+    R2D2Config,
+)
+from ray_tpu_torch.rl.algorithms.sac import SAC, SACConfig  # noqa: F401

@@ -15,7 +15,7 @@ behind the params it is trained into, as in JAX's pipeline.
 from __future__ import annotations
 
 import logging
-from typing import Any, Dict, List
+from typing import Any, Dict, Iterator, List
 
 import torch
 
@@ -88,7 +88,78 @@ def make_impala_loss(spec, cfg: AlgorithmConfig):
     return loss_fn
 
 
-class IMPALA(Algorithm):
+class RoundRobinFleet:
+    """JAX's runners in flight, made deterministic (IMPALA, Ape-X): each
+    runner in flight holds a snapshot of the params it was submitted with
+    (``_params_for(i)``); ``_consume_round`` takes them round robin, one
+    fragment a runner, each sampled at consume time with its snapshot and
+    resubmitted with the current params before the fragment is yielded
+    (JAX resubmits before the learner's update). A failed runner's
+    fragment is dropped and the (rebuilt) runner resubmitted (reference:
+    FaultTolerantActorManager); one that fails
+    ``_MAX_CONSECUTIVE_FAILURES`` times in a row leaves the rotation."""
+
+    # a runner that keeps failing would otherwise be resubmitted forever
+    _MAX_CONSECUTIVE_FAILURES = 3
+
+    def _init_fleet(self) -> None:
+        # runner index -> the params it was submitted with
+        self._inflight: Dict[int, Any] = {}
+        self._runner_failures: Dict[int, int] = {}
+        self._next_runner = 0
+
+    def _submit(self, i: int) -> None:
+        if self._runner_failures.get(i, 0) \
+                >= self._MAX_CONSECUTIVE_FAILURES:
+            return  # evicted from rotation
+        self._inflight[i] = models.clone_tree(self._params_for(i))
+
+    def _next_in_flight(self) -> int:
+        """The next in-flight runner, round robin."""
+        n = len(self.runners)
+        for k in range(n):
+            i = (self._next_runner + k) % n
+            if i in self._inflight:
+                self._next_runner = (i + 1) % n
+                return i
+        raise RuntimeError("no runner in flight")
+
+    def _consume_round(self, label: str) -> Iterator[Dict]:
+        """One fragment from each runner in flight, in turn; each counts
+        into the env steps before it is yielded."""
+        for i in range(len(self.runners)):  # keep every runner in flight
+            if i not in self._inflight:
+                self._submit(i)
+        if not self._inflight:
+            raise RuntimeError(
+                "all env-runners failed permanently (each exceeded "
+                f"{self._MAX_CONSECUTIVE_FAILURES} consecutive failures)")
+        for _ in range(len(self.runners)):
+            if not self._inflight:
+                break
+            i = self._next_in_flight()
+            snapshot = self._inflight.pop(i)
+            try:
+                batch = self.call_runner(i, "sample", snapshot)
+            except Exception as e:  # noqa: BLE001 — fragment lost, not fatal
+                logger.warning(
+                    "%s runner %d fragment lost (%s: %s) — resubmitting",
+                    label, i, type(e).__name__, str(e)[:120])
+                self._runner_failures[i] = \
+                    self._runner_failures.get(i, 0) + 1
+                self._submit(i)
+                continue
+            self._runner_failures.pop(i, None)
+            self._submit(i)  # resubmit with the current params
+            self._env_steps_total += len(batch["rewards"])
+            yield batch
+
+    def stop(self) -> None:
+        self._inflight.clear()
+        super().stop()
+
+
+class IMPALA(RoundRobinFleet, Algorithm):
     @classmethod
     def get_default_config(cls) -> AlgorithmConfig:
         cfg = AlgorithmConfig(algo_class=cls)
@@ -104,65 +175,16 @@ class IMPALA(Algorithm):
         self.learner = Learner(self.init_policy_params(), self.make_loss(),
                                cfg.lr, grad_clip=cfg.grad_clip, seed=cfg.seed,
                                device=self.device)
-        # runner index -> the params it was submitted with
-        self._inflight: Dict[int, Any] = {}
-        self._runner_failures: Dict[int, int] = {}
-        self._next_runner = 0
+        self._init_fleet()
 
-    # consecutive failures before a runner leaves the rotation: a runner
-    # that keeps failing would otherwise be resubmitted forever
-    _MAX_CONSECUTIVE_FAILURES = 3
-
-    def _submit(self, i: int) -> None:
-        if self._runner_failures.get(i, 0) \
-                >= self._MAX_CONSECUTIVE_FAILURES:
-            return  # evicted from rotation
-        self._inflight[i] = models.tree_map(torch.clone,
-                                            self.learner.get_params())
-
-    def _next_in_flight(self) -> int:
-        """The next in-flight runner, round robin."""
-        n = len(self.runners)
-        for k in range(n):
-            i = (self._next_runner + k) % n
-            if i in self._inflight:
-                self._next_runner = (i + 1) % n
-                return i
-        raise RuntimeError("no runner in flight")
+    def _params_for(self, runner_i: int):
+        return self.learner.get_params()
 
     def training_step(self) -> Dict[str, Any]:
-        for i in range(len(self.runners)):  # keep every runner in flight
-            if i not in self._inflight:
-                self._submit(i)
-        if not self._inflight:
-            raise RuntimeError(
-                "all env-runners failed permanently (each exceeded "
-                f"{self._MAX_CONSECUTIVE_FAILURES} consecutive failures)")
         metrics_list: List[Dict] = []
         consumed = 0
-        # consume as many fragments as there are runners per step; a
-        # failed runner's fragment is dropped and the (rebuilt) runner
-        # resubmitted (reference: FaultTolerantActorManager under the
-        # IMPALA aggregation path)
-        for _ in range(len(self.runners)):
-            if not self._inflight:
-                break
-            i = self._next_in_flight()
-            snapshot = self._inflight.pop(i)
-            try:
-                batch = self.call_runner(i, "sample", snapshot)
-            except Exception as e:  # noqa: BLE001 — fragment lost, not fatal
-                logger.warning(
-                    "IMPALA runner %d fragment lost (%s: %s) — resubmitting",
-                    i, type(e).__name__, str(e)[:120])
-                self._runner_failures[i] = \
-                    self._runner_failures.get(i, 0) + 1
-                self._submit(i)
-                continue
-            self._runner_failures.pop(i, None)
-            self._submit(i)  # resubmit with the current params
+        for batch in self._consume_round("IMPALA"):
             consumed += len(batch["rewards"])
-            self._env_steps_total += len(batch["rewards"])
             metrics_list.append(self.learner.update_minibatch(batch))
         if not metrics_list:
             return {"env_steps_this_iter": 0,
@@ -171,10 +193,6 @@ class IMPALA(Algorithm):
         out["env_steps_this_iter"] = consumed
         out.update(self.collect_episode_stats())
         return out
-
-    def stop(self) -> None:
-        self._inflight.clear()
-        super().stop()
 
 
 class IMPALAConfig(AlgorithmConfig):

@@ -39,6 +39,14 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
+def clone_tree(tree):
+    """A copy of every tensor leaf (JAX's ``tree_map(jnp.copy, ...)``):
+    the copy shares no storage with ``tree``; other leaves are kept."""
+    return tree_map(
+        lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x,
+        tree)
+
+
 def params_to_device(params, device: torch.device):
     """A params tree (numpy arrays or tensors) as float32 tensors on
     ``device``: numpy leaves are copied, tensors already there are kept."""
@@ -270,6 +278,26 @@ def gaussian_logp(mean: torch.Tensor, log_std: torch.Tensor,
 
 def gaussian_entropy(log_std: torch.Tensor) -> torch.Tensor:
     return torch.sum(log_std + 0.5 * math.log(2 * math.pi * math.e))
+
+
+# ---- noise inside the off-policy losses ----
+# SAC, CQL, CRR and TD3 draw their noise through these two, in the order
+# JAX's losses draw theirs from the learner's key; the draws come from the
+# learner's generator (they are not JAX's).
+
+
+def normal(gen: torch.Generator, shape) -> torch.Tensor:
+    """Standard normal draws of ``shape`` on ``gen``'s device."""
+    return torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                       device=gen.device)
+
+
+def uniform(gen: torch.Generator, shape, low: float,
+            high: float) -> torch.Tensor:
+    """Uniform draws in [low, high) of ``shape`` on ``gen``'s device."""
+    u = torch.rand(tuple(shape), generator=gen, dtype=torch.float32,
+                   device=gen.device)
+    return low + (high - low) * u
 
 
 def num_params(params) -> int:

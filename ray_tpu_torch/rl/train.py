@@ -3,8 +3,9 @@
 
 Reference analogs: ``rllib/train.py``, ``rllib/evaluate.py`` and
 ``rllib/algorithms/registry.py``. The registry holds the algorithms the
-port has (PPO, APPO, IMPALA, A2C, PG); the bundled tuned examples are
-those of the same algorithms. The checkpoint directory stores the pickled
+port has, under JAX's names (PPO, APPO, IMPALA, A2C, PG, DQN, SIMPLEQ,
+APEXDQN, APEXDDPG, SAC, DDPG, TD3, BC, MARWIL, CQL, CRR, R2D2); the
+bundled tuned examples are JAX's for the same algorithms. The checkpoint directory stores the pickled
 ``AlgorithmConfig`` next to the Trainable payload so ``run_evaluate`` can
 rebuild the algorithm without re-specifying flags. Every entry point runs
 on ``cuda`` unless given ``device``. PyYAML is imported only where a YAML
@@ -29,9 +30,19 @@ def algorithm_registry() -> Dict[str, type]:
     """name -> AlgorithmConfig class for every ported algorithm."""
     from ray_tpu_torch import rl
 
-    return {"PPO": rl.PPOConfig, "APPO": rl.APPOConfig,
-            "IMPALA": rl.IMPALAConfig, "A2C": rl.A2CConfig,
-            "PG": rl.PGConfig}
+    return {
+        "PPO": rl.PPOConfig, "APPO": rl.APPOConfig,
+        "IMPALA": rl.IMPALAConfig, "A2C": rl.A2CConfig,
+        "PG": rl.PGConfig,
+        "DQN": rl.DQNConfig, "APEXDQN": rl.ApexDQNConfig,
+        "APEXDDPG": rl.ApexDDPGConfig,
+        "SIMPLEQ": rl.SimpleQConfig,
+        "SAC": rl.SACConfig,
+        "DDPG": rl.DDPGConfig, "TD3": rl.TD3Config,
+        "BC": rl.BCConfig, "MARWIL": rl.MARWILConfig,
+        "CQL": rl.CQLConfig, "CRR": rl.CRRConfig,
+        "R2D2": rl.R2D2Config,
+    }
 
 
 def get_algorithm_config(run: str):

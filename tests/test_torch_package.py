@@ -78,6 +78,15 @@ def test_port_imports_no_jax_and_no_ray_tpu():
             "ray_tpu_torch/rl/algorithms/a2c.py",
             "ray_tpu_torch/rl/algorithms/impala.py",
             "ray_tpu_torch/rl/algorithms/appo.py",
+            "ray_tpu_torch/rl/algorithms/dqn.py",
+            "ray_tpu_torch/rl/algorithms/ddpg.py",
+            "ray_tpu_torch/rl/algorithms/sac.py",
+            "ray_tpu_torch/rl/algorithms/apex.py",
+            "ray_tpu_torch/rl/algorithms/r2d2.py",
+            "ray_tpu_torch/rl/algorithms/offline.py",
+            "ray_tpu_torch/rl/algorithms/cql.py",
+            "ray_tpu_torch/rl/algorithms/crr.py",
+            "ray_tpu_torch/rl/replay_buffer.py", "ray_tpu_torch/rl/ope.py",
             "ray_tpu_torch/rl/connectors.py", "ray_tpu_torch/rl/config.py",
             "ray_tpu_torch/rl/rl_module.py",
             "ray_tpu_torch/rl/env_runner.py",
@@ -171,6 +180,18 @@ def test_entry_points_default_to_cuda():
         trl.Catalog.build(trl.EnvSpec(obs_dim=4, num_actions=2))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tanakin.bench_fused_vs_host()
+    # the off-policy families: value-based, continuous, recurrent, offline
+    offline = {"obs": np.zeros((4, 3), np.float32),
+               "actions": np.zeros((4, 1), np.float32),
+               "rewards": np.zeros(4, np.float32),
+               "next_obs": np.zeros((4, 3), np.float32),
+               "dones": np.zeros(4, bool)}
+    for cfg in (trl.DQNConfig(), trl.ApexDQNConfig(), trl.SACConfig(),
+                trl.TD3Config(), trl.ApexDDPGConfig(), trl.R2D2Config(),
+                trl.CQLConfig(offline_data=offline),
+                trl.CRRConfig(offline_data=offline)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cfg.build()
     # the mesh, sharded init and the process group: cuda and nccl
     # unless the caller asks for the CPU and gloo
     with pytest.raises(RuntimeError, match="no CUDA device"):

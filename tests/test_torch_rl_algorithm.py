@@ -299,8 +299,11 @@ def test_run_train_and_tuned_example(tmp_path):
     ev = ttrain.run_evaluate(str(tmp_path / "ck"), episodes=1, out=out,
                              device="cpu")
     assert ev["episodes"] >= 1
-    assert ttrain.list_tuned_examples() == ["cartpole-impala", "cartpole-pg",
-                                            "cartpole-ppo"]
+    assert ttrain.list_tuned_examples() == [
+        "cartpole-apex-dqn", "cartpole-dqn", "cartpole-impala",
+        "cartpole-pg", "cartpole-ppo", "masked-cartpole-r2d2",
+        "pendulum-apex-ddpg", "pendulum-ddpg", "pendulum-sac",
+        "pendulum-td3"]
     exp = ttrain.load_tuned_example("cartpole-pg")
     assert exp["run"] == "PG" and exp["stop"]["training_iteration"] == 40
     res = ttrain.run_tuned_example("cartpole-pg", stop_iters=1, out=out,
@@ -308,7 +311,7 @@ def test_run_train_and_tuned_example(tmp_path):
     assert res["env_steps_this_iter"] == 2 * 8 * 128
     assert res["training_iteration"] == 1
     with pytest.raises(ValueError, match="unknown algorithm"):
-        ttrain.get_algorithm_config("DQN")
+        ttrain.get_algorithm_config("DREAMERV3")
     with pytest.raises(FileNotFoundError, match="bundled"):
         ttrain.load_tuned_example("no-such-example")
 
