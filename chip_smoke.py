@@ -3157,15 +3157,20 @@ RL_CNN_REL_TOL = 1e-4
 
 class RLClock:
     """Patches the RL classes while entered: for each ``train()`` call of
-    any algorithm (R2D2's too), the host seconds spent sampling
-    (``EnvRunner.sample``, R2D2's ``_collect``) and in
-    the Learner's updates (each timed call ends with a device sync, so
-    queued work is charged to the call that launched it), the iteration's
-    seconds and its result; the first algorithm trained and its params
-    before its first iteration."""
+    any algorithm (R2D2's and the in-process trainables' too), the host
+    seconds spent sampling (``EnvRunner.sample``, the trainables' own
+    collection methods), in updates (the Learner's, and each trainable's
+    own update method) and in MBMPO's ensemble fit (each timed call ends
+    with a device sync, so queued work is charged to the call that
+    launched it), the count of updates, the iteration's seconds and its
+    result; the first algorithm trained and its params before its first
+    iteration."""
 
     def __init__(self, torch):
         from ray_tpu_torch.models.convert import params_to_numpy
+        from ray_tpu_torch.rl import multi_agent
+        from ray_tpu_torch.rl.algorithms import dreamer, maddpg, maml, mbmpo
+        from ray_tpu_torch.rl.algorithms import qmix
         from ray_tpu_torch.rl.algorithms.r2d2 import R2D2
         from ray_tpu_torch.rl.env_runner import EnvRunner
         from ray_tpu_torch.rl.learner import Learner
@@ -3174,14 +3179,29 @@ class RLClock:
         self.torch, self.to_numpy = torch, params_to_numpy
         self.iters, self.algo, self.initial = [], None, None
         self._busy = False
-        self._targets = [(Trainable, "train", None),
-                         (EnvRunner, "sample", "sample_s"),
-                         (R2D2, "_collect", "sample_s"),
-                         (Learner, "update", "update_s"),
-                         (Learner, "update_minibatch", "update_s")]
+        # (class, method, seconds key or None for train(), counts updates)
+        self._targets = [(Trainable, "train", None, False),
+                         (EnvRunner, "sample", "sample_s", False),
+                         (R2D2, "_collect", "sample_s", False),
+                         (multi_agent.MultiAgentPPO, "_rollout", "sample_s",
+                          False),
+                         (qmix.QMIX, "_collect", "sample_s", False),
+                         (maddpg.MADDPG, "_collect", "sample_s", False),
+                         (maml.MAML, "_rollout", "sample_s", False),
+                         (mbmpo.MBMPO, "_collect_real", "sample_s", False),
+                         (dreamer.DreamerV3, "_collect", "sample_s", False),
+                         (Learner, "update", "update_s", False),
+                         (Learner, "update_minibatch", "update_s", True),
+                         (maddpg.MADDPG, "_update_targets", "update_s",
+                          False),
+                         (maml.MAML, "_meta_update", "update_s", True),
+                         (mbmpo.MBMPO, "_meta_step", "update_s", True),
+                         (mbmpo.MBMPO, "_fit_ensemble", "fit_s", False),
+                         (dreamer.DreamerV3, "_train_step", "update_s",
+                          True)]
         self._saved = []
 
-    def _wrap(self, orig, key, name):
+    def _wrap(self, orig, key, counts):
         clock = self
 
         def timed(obj, *args, **kwargs):
@@ -3189,14 +3209,15 @@ class RLClock:
                 if clock.algo is None:
                     clock.algo = obj
                     clock.initial = clock.to_numpy(obj.get_params())
-                rec = {"sample_s": 0.0, "update_s": 0.0, "updates": 0}
+                rec = {"sample_s": 0.0, "update_s": 0.0, "fit_s": 0.0,
+                       "updates": 0}
                 clock.iters.append(rec)
                 t0 = time.perf_counter()
                 rec["result"] = orig(obj, *args, **kwargs)
                 clock.torch.cuda.synchronize()
                 rec["iteration_s"] = time.perf_counter() - t0
                 return rec["result"]
-            if name == "update_minibatch" and clock.iters:
+            if counts and clock.iters:
                 clock.iters[-1]["updates"] += 1
             if clock._busy or not clock.iters:
                 return orig(obj, *args, **kwargs)
@@ -3212,9 +3233,9 @@ class RLClock:
         return timed
 
     def __enter__(self):
-        for cls, name, key in self._targets:
+        for cls, name, key, counts in self._targets:
             self._saved.append((cls, name, cls.__dict__.get(name)))
-            setattr(cls, name, self._wrap(getattr(cls, name), key, name))
+            setattr(cls, name, self._wrap(getattr(cls, name), key, counts))
         return self
 
     def __exit__(self, *exc):
@@ -3239,10 +3260,16 @@ def rl_run(torch, np, rltrain, run, env, config, iters, stop_reward=None):
     return clock, last, out.getvalue()
 
 
-def rl_summary(np, clock):
+def rl_summary(np, clock, steps_per_iteration=None):
+    """Seconds an iteration split into sampling and updates, env steps/s
+    (from the result's ``env_steps_total``, else ``steps_per_iteration``
+    an iteration) and the returns."""
     its = clock.iters
     total_s = sum(r["iteration_s"] for r in its)
-    steps = its[-1]["result"]["env_steps_total"] if its else 0
+    if steps_per_iteration is not None:
+        steps = steps_per_iteration * len(its)
+    else:
+        steps = its[-1]["result"]["env_steps_total"] if its else 0
     return {"iterations": len(its),
             "iteration_s": [r["iteration_s"] for r in its],
             "sample_s": [r["sample_s"] for r in its],
@@ -3259,10 +3286,11 @@ def rl_summary(np, clock):
 
 
 class FixedDraws:
-    """While entered, ``models.normal`` and ``models.uniform`` record
-    their draws (from a CPU generator seeded 0) on the first pass and
-    return the recorded draws, moved to ``device``, on the ``replay``
-    pass: the card's update sees the CPU's noise."""
+    """While entered, ``models.normal``, ``models.uniform`` and
+    ``models.gumbel`` record their draws (from a CPU generator seeded 0)
+    on the first pass and return the recorded draws, moved to ``device``,
+    on the ``replay`` pass: the card's update sees the CPU's noise and
+    categorical draws."""
 
     def __init__(self, torch, rlm):
         self.torch, self.rlm, self.draws = torch, rlm, []
@@ -3283,15 +3311,17 @@ class FixedDraws:
 
     def __enter__(self):
         rlm, gen = self.rlm, self.gen
-        self._saved = (rlm.normal, rlm.uniform)
-        normal, uniform = self._saved
+        self._saved = (rlm.normal, rlm.uniform, rlm.gumbel)
+        normal, uniform, gumbel = self._saved
         rlm.normal = lambda g, shape: self._take(lambda: normal(gen, shape))
         rlm.uniform = lambda g, shape, low, high: self._take(
             lambda: uniform(gen, shape, low, high))
+        rlm.gumbel = lambda g, shape, dtype=None: self._take(
+            lambda: gumbel(gen, shape))
         return self
 
     def __exit__(self, *exc):
-        self.rlm.normal, self.rlm.uniform = self._saved
+        self.rlm.normal, self.rlm.uniform, self.rlm.gumbel = self._saved
 
 
 def rl_update_vs_cpu(torch, np, name, loss_fn, params, batch):
@@ -3677,12 +3707,419 @@ def rl_off_policy(torch, np, rltrain, smi):
           "off_policy_part_s": time.perf_counter() - t_part})
 
 
+# ---- the multi-agent and model-based families, JAX's own configs and
+# seeds as they are. IPPO: tests/test_multi_agent.py:14-24, until reward
+# per step passes 0.6 (:41-47, up to 26 iterations)
+RL_IPPO = {"env": "coordination", "num_envs_per_runner": 16,
+           "rollout_fragment_length": 64, "lr": 3e-3, "num_epochs": 4,
+           "minibatch_size": 256}
+RL_IPPO_ITERS, RL_IPPO_THRESHOLD = 26, 0.6
+# QMIX: tests/test_rl_new_algos.py:129-148 (seed 3, up to 20 iterations,
+# best reward per step above 0.5)
+RL_QMIX_GATE = {"num_envs_per_runner": 16, "rollout_fragment_length": 32,
+                "learning_starts": 256, "epsilon_decay_steps": 3_000,
+                "updates_per_iter": 48, "hidden": [64], "seed": 3}
+RL_QMIX_ITERS, RL_QMIX_THRESHOLD = 20, 0.5
+# the tuned examples (copies of JAX's yamls under
+# ray_tpu_torch/rl/tuned_examples/), written out so the card needs no
+# PyYAML. coordination-qmix: 128 rows an iteration, updates from the 4th
+# (512 >= 500), 5 updating iterations in 8
+RL_QMIX_YAML = {"num_envs_per_runner": 8, "rollout_fragment_length": 16,
+                "learning_starts": 500, "updates_per_iter": 32}
+RL_QMIX_YAML_ITERS = 8
+# spread-maddpg: 400 rows an iteration, so every iteration updates
+RL_MADDPG_YAML = {"num_envs_per_runner": 16, "rollout_fragment_length": 25,
+                  "learning_starts": 400, "minibatch_size": 128,
+                  "updates_per_iter": 64, "noise_decay_steps": 4000}
+RL_MADDPG_ITERS = 10
+# MAML: the default config (seed 0), tests/test_pg_maml.py:72-89
+RL_MAML_ITERS, RL_MAML_GAIN = 30, 0.05
+RL_MBMPO_YAML = {"ensemble_size": 5, "real_steps_per_iter": 400,
+                 "model_epochs": 5, "imag_horizon": 16,
+                 "meta_steps_per_iter": 8}
+RL_MBMPO_ITERS = 3
+# cartpole-dreamerv3 at its full widths: 128 steps an iteration, updates
+# from the 8th (1,024 >= 1,000), 10 updating iterations in 17
+RL_DREAMER_YAML = {"num_envs_per_runner": 8, "rollout_fragment_length": 16,
+                   "learning_starts": 1000, "updates_per_iter": 8}
+RL_DREAMER_ITERS = 17
+# tests/test_dreamer.py:9-20 and :37-54, the world-model check: rew_loss
+# below 0.2x its first value, cont_loss and recon_loss below theirs
+RL_DREAMER_SMALL = {"num_envs_per_runner": 4, "rollout_fragment_length": 16,
+                    "learning_starts": 128, "updates_per_iter": 8,
+                    "batch_seqs": 4, "deter_dim": 64, "embed_dim": 64,
+                    "hidden": [64]}
+RL_DREAMER_SMALL_ITERS, RL_DREAMER_REW_RATIO = 30, 0.2
+
+
+def rl_finite_moved(np, clock):
+    """Every float metric of the run finite (episode returns aside) and
+    the params moved from their values before the first iteration."""
+    from ray_tpu_torch.parallel.train_step import _leaves
+
+    finite = all(np.isfinite(v) for r in clock.iters
+                 for k, v in r["result"].items()
+                 if isinstance(v, float) and k != "episode_return_mean")
+    before = _leaves(clock.initial)
+    after = _leaves(clock.to_numpy(clock.algo.get_params()))
+    moved = any(np.any(after[k] != before[k]) for k in after)
+    name = type(clock.algo).__name__
+    check(finite, f"{name}: a non-finite metric")
+    check(moved, f"{name}: params did not move")
+    return {"all_metrics_finite": finite, "params_moved": moved}
+
+
+def rl_targets_moved(np, clock, pairs, expect_moved=True):
+    """Each (online, target) pair of the run's params: the target moved
+    (or, with ``expect_moved`` false, did not: no sync yet) and shares no
+    storage with its online net."""
+    from ray_tpu_torch.parallel.train_step import _leaves
+
+    before = _leaves(clock.initial)
+    params = clock.algo.get_params()
+    after = _leaves(clock.to_numpy(params))
+    out = {}
+    for online, tgt in pairs:
+        on, tg = _leaves(params[online]), _leaves(params[tgt])
+        out[tgt] = {
+            "moved": any(np.any(after[k] != before[k]) for k in after
+                         if k.split("/")[0] == tgt),
+            "shared": [k for k in on if on[k].untyped_storage().data_ptr()
+                       == tg[k].untyped_storage().data_ptr()]}
+        check(out[tgt]["moved"] == expect_moved,
+              f"{tgt} moved {out[tgt]['moved']}, want {expect_moved}")
+        check(not out[tgt]["shared"],
+              f"{tgt} shares storage: {out[tgt]['shared']}")
+    return out
+
+
+def rl_part(np, clock, last, smi, name, launches, **extra):
+    """One part's record: timing split, ms an update, env steps/s, the
+    run's last result and the flash launches it made."""
+    rec = {"phase": "rl", "part": name, "nvidia_smi": smi,
+           "update_ms": rl_update_ms(clock),
+           **rl_summary(np, clock, extra.pop("steps_per_iteration", None)),
+           **extra, "last_result": last, "flash_launches": launches}
+    check(all(v == 0 for v in launches.values()),
+          f"{name}: a flash kernel launched {launches}")
+    emit(rec)
+    return rec
+
+
+def launch_delta_since(flash, before):
+    now = read_launches(flash)
+    return {k: now[k] - before[k] for k in now}
+
+
+def tree_batch(np, prefix, tree):
+    """A params tree as batch columns ``prefix/<leaf path>`` (numpy)."""
+    from ray_tpu_torch.parallel.train_step import _leaves
+
+    return {f"{prefix}/{k}": v.detach().cpu().numpy()
+            for k, v in _leaves(tree).items()}
+
+
+def tree_of(b, prefix, like):
+    """The tree ``tree_batch`` wrote, nested as ``like``, on the batch's
+    device."""
+    from ray_tpu_torch.parallel.train_step import _unflatten_like
+
+    n = len(prefix) + 1
+    return _unflatten_like(like, {k[n:]: v for k, v in b.items()
+                                  if k.startswith(prefix + "/")})
+
+
+def rl_new_losses_vs_cpu(torch, np, algos):
+    """Each new loss's value and gradients on the card against the CPU on
+    the same inputs and draws (``rl_update_vs_cpu``): QMIX's, MADDPG's,
+    MAML's and MBMPO's second-order meta-gradients, MBMPO's ensemble
+    loss, and Dreamer's world-model, actor and critic losses."""
+    from ray_tpu_torch.rl.algorithms import maml as tmaml
+    from ray_tpu_torch.rl.algorithms import mbmpo as tmbmpo
+    from ray_tpu_torch.rl.algorithms.maml import PointGoal
+
+    out = {}
+    qmix = algos["QMIX"]
+    arrays = {k: np.concatenate(v) for k, v in qmix._buf.items()}
+    out["QMIX"] = rl_update_vs_cpu(
+        torch, np, "QMIX", qmix.learner._loss_fn, qmix.get_params(),
+        qmix._sample_batch(arrays, qmix.config.minibatch_size))
+    maddpg = algos["MADDPG"]
+    out["MADDPG"] = rl_update_vs_cpu(
+        torch, np, "MADDPG", maddpg.learner._loss_fn, maddpg.get_params(),
+        maddpg.buffer.sample(maddpg.config.minibatch_size))
+    # MAML: two fresh tasks' batches from the card, the meta-gradient
+    # through both inner steps
+    maml = algos["MAML"]
+    cfg = maml.config
+    batch = {}
+    for i in range(2):
+        env = PointGoal(maml._sample_task(), cfg.num_envs_per_runner,
+                        cfg.horizon, seed=int(maml._rng.integers(1 << 31)))
+        pre, post, _, _ = maml._task_rollouts(env)
+        batch.update({f"pre{i}/{k}": v.cpu().numpy() for k, v in pre.items()})
+        batch.update({f"post{i}/{k}": v.cpu().numpy()
+                      for k, v in post.items()})
+
+    def maml_loss(q, b, _):
+        pick = lambda tag: {k.split("/")[1]: v for k, v in b.items()  # noqa
+                            if k.startswith(tag + "/")}
+        return tmaml.meta_loss(q, [pick("pre0"), pick("pre1")],
+                               [pick("post0"), pick("post1")], cfg.inner_lr,
+                               cfg.inner_steps), {}
+
+    out["MAML_meta"] = rl_update_vs_cpu(torch, np, "MAML meta-gradient",
+                                        maml_loss, maml.params, batch)
+    # MBMPO: the meta-gradient over the fitted ensemble, and one ensemble
+    # update's loss on bootstrap minibatches of its dataset
+    mb = algos["MBMPO"]
+    pool = np.concatenate(mb._buf["obs"])
+    batch = {"start": pool[mb._rng.integers(0, len(pool),
+                                            mb.config.imag_envs)],
+             **{f"norm/{k}": v for k, v in mb._norm.items()},
+             **tree_batch(np, "mp", mb.model_params)}
+
+    def mbmpo_meta(q, b, _):
+        norm = {k[5:]: v for k, v in b.items() if k.startswith("norm/")}
+        loss, _ = mb.meta_loss(q, tree_of(b, "mp", mb.model_params), norm,
+                               b["start"])
+        return loss, {}
+
+    out["MBMPO_meta"] = rl_update_vs_cpu(torch, np, "MBMPO meta-gradient",
+                                         mbmpo_meta, mb.params, batch)
+    x, y = mb._dataset()
+    xn = (x - mb._norm["x_mean"]) / mb._norm["x_std"]
+    yn = (y - mb._norm["y_mean"]) / mb._norm["y_std"]
+    idx = mb._rng.choice(len(xn), size=(mb.config.ensemble_size,
+                                        mb.config.model_batch))
+    out["MBMPO_ensemble"] = rl_update_vs_cpu(
+        torch, np, "MBMPO ensemble",
+        lambda q, b, _: (tmbmpo.member_losses(q, b["xs"], b["ys"]).sum(),
+                         {}), mb.model_params, {"xs": xn[idx], "ys": yn[idx]})
+    # Dreamer: the three losses on one replayed batch, the actor's from the
+    # world model's states and the critic's on the actor's rollout
+    dr = algos["DREAMERV3"]
+    fns = dr._fns
+    batch = dr._sample_batch()
+    out["DREAMERV3_wm"] = rl_update_vs_cpu(
+        torch, np, "Dreamer world model",
+        lambda q, b, _: fns.wm_loss(q, b, None), dr.wm, batch)
+    dev_batch = {k: torch.as_tensor(v, device=DEV) for k, v in batch.items()}
+    with torch.no_grad():
+        _, aux = fns.wm_loss(dr.wm, dev_batch, dr._gen)
+        h0, z0 = aux["states"]
+        _, act_aux = fns.actor_loss(dr.actor, dr.critic, dr.wm, h0, z0,
+                                    dr._gen, dr._ret_scale)
+    ret_scale = dr._ret_scale
+    out["DREAMERV3_actor"] = rl_update_vs_cpu(
+        torch, np, "Dreamer actor",
+        lambda q, b, _: fns.actor_loss(
+            q, tree_of(b, "c", dr.critic), tree_of(b, "w", dr.wm), b["h0"],
+            b["z0"], None, ret_scale),
+        dr.actor, {"h0": h0.cpu().numpy(), "z0": z0.cpu().numpy(),
+                   **tree_batch(np, "c", dr.critic),
+                   **tree_batch(np, "w", dr.wm)})
+    out["DREAMERV3_critic"] = rl_update_vs_cpu(
+        torch, np, "Dreamer critic",
+        lambda q, b, _: (fns.critic_loss(q, b["fts"], b["rets"]), {}),
+        dr.critic, {"fts": act_aux["fts"].cpu().numpy(),
+                    "rets": act_aux["rets"].cpu().numpy()})
+    return out
+
+
+def rl_multi_agent_model_based(torch, np, rltrain, flash, smi):
+    """The multi-agent and model-based families on the card: IPPO until it
+    coordinates and one shared-mapping iteration, JAX's QMIX test config
+    until it coordinates and coordination-qmix, spread-maddpg, MAML over
+    30 iterations with its adaptation gain, pendulum-mbmpo, and
+    cartpole-dreamerv3 at its full widths (with the busy share of one
+    updating iteration) and JAX's world-model check, then each new loss
+    against the CPU. Every part reads its flash launches (0)."""
+    from ray_tpu_torch import rl
+
+    t_part = time.perf_counter()
+    algos = {}
+    # 1. independent PPO until it coordinates, then the shared mapping
+    before = read_launches(flash)
+    ippo = rl.AlgorithmConfig(algo_class=rl.MultiAgentPPO).update_from_dict(
+        dict(RL_IPPO)).build(device=DEV)
+    rewards = []
+    with RLClock(torch) as clock:
+        for _ in range(RL_IPPO_ITERS):
+            rewards.append(ippo.train()["reward_mean_per_step"])
+            if rewards[-1] > RL_IPPO_THRESHOLD:
+                break
+    shared = rl.AlgorithmConfig(algo_class=rl.MultiAgentPPO).update_from_dict(
+        dict(RL_IPPO)).multi_agent(
+        policy_mapping_fn=lambda agent: "shared").build(device=DEV)
+    m_shared = shared.train()
+    rl_part(np, clock, clock.iters[-1]["result"], smi, "ippo_coordination",
+            launch_delta_since(flash, before), source=(
+                "tests/test_multi_agent.py:14-24, :41-47"),
+            config=RL_IPPO, reward_mean_per_step=rewards,
+            threshold=RL_IPPO_THRESHOLD,
+            steps_per_iteration=RL_IPPO["num_envs_per_runner"]
+            * RL_IPPO["rollout_fragment_length"],
+            **rl_finite_moved(np, clock), shared_mapping={
+                "learners": list(shared.learners), "result": m_shared})
+    check(rewards[-1] > RL_IPPO_THRESHOLD,
+          f"IPPO did not coordinate: reward per step {rewards}")
+    check(list(shared.learners) == ["shared"]
+          and np.isfinite(m_shared["shared/policy_loss"]),
+          f"IPPO shared mapping: {list(shared.learners)} {m_shared}")
+    # 2. QMIX: JAX's test config until it coordinates (the test's loop,
+    # which stops there), then coordination-qmix through run_train
+    for part, config, iters in (("qmix_gate", RL_QMIX_GATE, RL_QMIX_ITERS),
+                                ("coordination_qmix", RL_QMIX_YAML,
+                                 RL_QMIX_YAML_ITERS)):
+        before = read_launches(flash)
+        if part == "qmix_gate":
+            algo = rltrain.get_algorithm_config("QMIX").update_from_dict(
+                dict(config)).build(device=DEV)
+            with RLClock(torch) as clock:
+                for _ in range(iters):
+                    last = algo.train()
+                    if last["reward_mean_per_step"] > RL_QMIX_THRESHOLD:
+                        break
+        else:
+            clock, last, _ = rl_run(torch, np, rltrain, "QMIX",
+                                    "coordination", config, iters)
+        per_step = [r["result"]["reward_mean_per_step"] for r in clock.iters]
+        updating = sum(1 for r in clock.iters if "loss" in r["result"])
+        extra = {}
+        if part == "qmix_gate":
+            algos["QMIX"] = clock.algo
+            synced = clock.algo._grad_updates >= config.get(
+                "target_update_freq", 200)
+            extra = {"source": "tests/test_rl_new_algos.py:129-148",
+                     "threshold": RL_QMIX_THRESHOLD,
+                     "grad_updates": clock.algo._grad_updates,
+                     "targets": rl_targets_moved(
+                         np, clock, [("agent", "target_agent"),
+                                     ("mixer", "target_mixer")], synced)}
+        else:
+            extra = {"source": "ray_tpu_torch/rl/tuned_examples/"
+                               "coordination-qmix.yaml"}
+        rl_part(np, clock, last, smi, part, launch_delta_since(flash, before),
+                config=config, reward_mean_per_step=per_step,
+                updating_iterations=updating, **rl_finite_moved(np, clock),
+                **extra)
+        if part == "qmix_gate":
+            check(per_step[-1] > RL_QMIX_THRESHOLD,
+                  f"QMIX did not coordinate: best reward per step "
+                  f"{max(per_step)}")
+        else:
+            check(updating == 5, f"coordination-qmix: {updating} updating "
+                                 "iterations, want 5")
+    # 3. spread-maddpg: targets move by polyak, never alias
+    before = read_launches(flash)
+    clock, last, _ = rl_run(torch, np, rltrain, "MADDPG", "spread",
+                            RL_MADDPG_YAML, RL_MADDPG_ITERS)
+    algos["MADDPG"] = clock.algo
+    updating = sum(1 for r in clock.iters if "loss" in r["result"])
+    rl_part(np, clock, last, smi, "spread_maddpg",
+            launch_delta_since(flash, before),
+            source="ray_tpu_torch/rl/tuned_examples/spread-maddpg.yaml",
+            config=RL_MADDPG_YAML, updating_iterations=updating,
+            **rl_finite_moved(np, clock), targets=rl_targets_moved(
+                np, clock, [("actors", "actors_t"),
+                            ("critics", "critics_t")]))
+    check(updating == RL_MADDPG_ITERS,
+          f"spread-maddpg: {updating} updating iterations")
+    # 4. MAML: the adaptation gain on fresh tasks before and after 30
+    # meta-iterations (evaluate leaves the training state as it was, so a
+    # fresh build's is the run's before it trains)
+    before = read_launches(flash)
+    maml_cfg = {"seed": 0}
+    ev_before = rltrain.get_algorithm_config("MAML").update_from_dict(
+        dict(maml_cfg)).build(device=DEV).evaluate(num_tasks=8)
+    clock, last, _ = rl_run(torch, np, rltrain, "MAML", None, maml_cfg,
+                            RL_MAML_ITERS)
+    algos["MAML"] = clock.algo
+    ev_after = clock.algo.evaluate(num_tasks=8)
+    rl_part(np, clock, last, smi, "maml", launch_delta_since(flash, before),
+            source="tests/test_pg_maml.py:72-89", config=maml_cfg,
+            evaluate_before=ev_before, evaluate_after=ev_after,
+            gain_threshold=RL_MAML_GAIN,
+            post_adapt_reward=[r["result"]["post_adapt_reward"]
+                               for r in clock.iters],
+            **rl_finite_moved(np, clock))
+    check(ev_after["post_adapt_reward"] > ev_before["post_adapt_reward"],
+          f"MAML: post-adaptation reward {ev_before} -> {ev_after}")
+    check(ev_after["adaptation_gain"] > RL_MAML_GAIN,
+          f"MAML: adaptation gain {ev_after['adaptation_gain']}")
+    # 5. pendulum-mbmpo: the ensemble's validation loss falls
+    before = read_launches(flash)
+    clock, last, _ = rl_run(torch, np, rltrain, "MBMPO", "Pendulum-v1",
+                            RL_MBMPO_YAML, RL_MBMPO_ITERS)
+    algos["MBMPO"] = clock.algo
+    val = [r["result"]["model_val_loss"] for r in clock.iters]
+    rl_part(np, clock, last, smi, "pendulum_mbmpo",
+            launch_delta_since(flash, before),
+            source="ray_tpu_torch/rl/tuned_examples/pendulum-mbmpo.yaml",
+            config=RL_MBMPO_YAML, model_val_loss=val,
+            fit_s=[r["fit_s"] for r in clock.iters],
+            meta_loss=[r["result"]["meta_loss"] for r in clock.iters],
+            **rl_finite_moved(np, clock))
+    check(val[-1] < val[0], f"MBMPO: validation loss {val} did not fall")
+    # 6. cartpole-dreamerv3 at full widths, its busy share, then JAX's
+    # world-model check
+    before = read_launches(flash)
+    clock, last, _ = rl_run(torch, np, rltrain, "DREAMERV3", "CartPole-v1",
+                            RL_DREAMER_YAML, RL_DREAMER_ITERS)
+    dreamer = clock.algo
+    algos["DREAMERV3"] = dreamer
+    updating = sum(1 for r in clock.iters if "wm_loss" in r["result"])
+    summary = rl_finite_moved(np, clock)
+    rl_part(np, clock, last, smi, "cartpole_dreamerv3",
+            launch_delta_since(flash, before),
+            source="ray_tpu_torch/rl/tuned_examples/cartpole-dreamerv3.yaml",
+            config=RL_DREAMER_YAML, updating_iterations=updating,
+            widths={"deter": dreamer.config.deter_dim,
+                    "stoch": [dreamer.config.stoch_groups,
+                              dreamer.config.stoch_classes],
+                    "embed": dreamer.config.embed_dim,
+                    "hidden": list(dreamer.config.hidden)},
+            num_params={k: rl.models.num_params(v)
+                        for k, v in dreamer.get_params().items()},
+            iteration_profiled=rl_busy_share(torch, dreamer.train),
+            **summary)
+    check(updating == 10, f"cartpole-dreamerv3: {updating} updating "
+                          "iterations, want 10")
+    before = read_launches(flash)
+    clock, last, _ = rl_run(torch, np, rltrain, "DREAMERV3", "CartPole-v1",
+                            RL_DREAMER_SMALL, RL_DREAMER_SMALL_ITERS)
+    losses = [r["result"] for r in clock.iters if "rew_loss" in r["result"]]
+    first, final = losses[0], losses[-1]
+    wm = {k: [first[k], final[k]] for k in ("rew_loss", "cont_loss",
+                                             "recon_loss")}
+    rl_part(np, clock, last, smi, "dreamer_world_model",
+            launch_delta_since(flash, before),
+            source="tests/test_dreamer.py:9-20, :37-54",
+            config=RL_DREAMER_SMALL, first_and_last=wm,
+            rew_ratio=final["rew_loss"] / first["rew_loss"],
+            **rl_finite_moved(np, clock))
+    check(final["rew_loss"] < RL_DREAMER_REW_RATIO * first["rew_loss"],
+          f"Dreamer rew_loss {wm['rew_loss']}")
+    check(final["cont_loss"] < first["cont_loss"]
+          and final["recon_loss"] < first["recon_loss"],
+          f"Dreamer world model did not learn: {wm}")
+    # 7. each new loss on the card against the CPU
+    before = read_launches(flash)
+    emit({"phase": "rl", "part": "multi_agent_model_based_losses_vs_cpu",
+          "nvidia_smi": smi, "tolerance": RL_CNN_REL_TOL,
+          "losses": rl_new_losses_vs_cpu(torch, np, algos),
+          "flash_launches": launch_delta_since(flash, before),
+          "multi_agent_model_based_part_s": time.perf_counter() - t_part})
+
+
 def rl_phase(torch, np, flash, smi):
     """The RL stack on the card in one process: the tuned PPO example
     through ``run_train`` until it learns, the other on-policy configs, a
     Nature-CNN PPO update against the CPU, the fused iteration against
-    the host loop, and the off-policy families (``rl_off_policy``). No
-    flash kernel may launch."""
+    the host loop, the off-policy families (``rl_off_policy``) and the
+    multi-agent and model-based ones (``rl_multi_agent_model_based``).
+    No flash kernel may launch."""
     from ray_tpu_torch.parallel.train_step import _leaves
     from ray_tpu_torch.rl import anakin
     from ray_tpu_torch.rl import train as rltrain
@@ -3744,7 +4181,9 @@ def rl_phase(torch, np, flash, smi):
           f"fused compile_count {bench['fused_compile_count']}")
     # 5. the off-policy families
     rl_off_policy(torch, np, rltrain, smi)
-    # 6. nothing on the RL path reaches flash attention
+    # 6. the multi-agent and model-based families
+    rl_multi_agent_model_based(torch, np, rltrain, flash, smi)
+    # 7. nothing on the RL path reaches flash attention
     launches = read_launches(flash)
     emit({"phase": "rl", "part": "launches", "nvidia_smi": smi,
           "flash_launches": launches})

@@ -124,11 +124,17 @@ def policy_params_from_jax(np_params: dict, spec,
 
 def rl_params_from_jax(np_params: dict, like, *,
                        device: DeviceLike = None) -> dict:
-    """The params tree of an off-policy or recurrent RL algorithm from
-    JAX's numpy tree, in float32: DQN's ``{q, target}``, DDPG's and TD3's
-    ``{pi, q1[, q2], *_target}``, SAC's, CQL's and CRR's ``{pi, q1, q2,
-    q1_target, q2_target[, log_alpha]}``, R2D2's ``{q, target}`` with the
-    GRU's ``wx``, ``wh``, ``b``. ``like`` is a tree the port's own init
+    """The params tree of an off-policy, recurrent, multi-agent or
+    model-based RL algorithm from JAX's numpy tree, in float32: DQN's
+    ``{q, target}``, DDPG's and TD3's ``{pi, q1[, q2], *_target}``, SAC's,
+    CQL's and CRR's ``{pi, q1, q2, q1_target, q2_target[, log_alpha]}``,
+    R2D2's ``{q, target}`` with the GRU's ``wx``, ``wh``, ``b``; QMIX's
+    ``{agent, mixer, target_agent, target_mixer}`` (the mixer's four
+    hypernetworks), MADDPG's lists ``{actors, critics, actors_t,
+    critics_t}``, MAML's ``{pi, log_std}``, MBMPO's [K]-stacked ensemble
+    (every leaf led by the member axis) and DreamerV3's world model
+    ``{enc, gru, prior, post, dec, rew, cont}``, actor and critic.
+    ``like`` is a tree the port's own init
     made for the same config (an algorithm's ``get_params()``): every leaf
     it has is copied from ``np_params`` and shape-checked against it, on
     ``device`` (``like``'s device unless given)."""

@@ -343,6 +343,40 @@ def value_and_grad(fn: Callable, params, has_aux: bool = False):
     return out, dict(zip(leaves, grads))
 
 
+def grad(fn: Callable, params, *, create_graph: bool = False
+         ) -> Dict[str, torch.Tensor]:
+    """``jax.grad`` over a params tree, usable inside another
+    differentiation: the gradient of the scalar ``fn(params)`` for every
+    leaf by its ``_leaves`` name (zeros for a leaf the loss does not
+    reach). With ``create_graph`` the gradients are themselves functions
+    of the leaves that require grad, so a loss built from them
+    differentiates through this one (MAML's second-order meta-gradient:
+    ``jax.grad`` inside ``jax.value_and_grad``). A leaf that does not
+    require grad is differentiated as a detached copy, and ``params`` is
+    not modified."""
+    leaves = _leaves(params)
+    tracked = {k: t if t.requires_grad else t.detach().requires_grad_(True)
+               for k, t in leaves.items()}
+    with torch.enable_grad():
+        loss = fn(_unflatten_like(params, tracked))
+        grads = torch.autograd.grad(loss, list(tracked.values()),
+                                    create_graph=create_graph,
+                                    allow_unused=True,
+                                    materialize_grads=True)
+    return dict(zip(tracked, grads))
+
+
+def _unflatten_like(tree, flat: Dict[str, torch.Tensor], prefix: str = ""):
+    """``flat`` (leaves by ``_leaves`` name) nested as ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _unflatten_like(v, flat, f"{prefix}/{k}" if prefix
+                                   else str(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_unflatten_like(v, flat, f"{prefix}/{i}" if prefix
+                                else str(i)) for i, v in enumerate(tree)]
+    return flat[prefix]
+
+
 def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW,
                     loss_fn: Optional[Callable] = None,
                     device: DeviceLike = None, *, mesh=None,

@@ -2,20 +2,22 @@
 connectors, RLModule and Catalog, EnvRunner, Learner, Algorithm, replay
 buffers, off-policy estimators) with the on-policy (PPO, PG, A2C, IMPALA,
 APPO), value-based (DQN, SimpleQ, Ape-X DQN, R2D2), continuous (DDPG,
-TD3, SAC, Ape-X DDPG) and offline (BC, MARWIL, CQL, CRR) algorithms, the
-fused PPO iteration and RLHF. One process, one device: JAX's actor layer
+TD3, SAC, Ape-X DDPG), offline (BC, MARWIL, CQL, CRR), multi-agent
+(MultiAgentEnv, independent PPO, QMIX, MADDPG), meta-learning (MAML) and
+model-based (MBMPO, DreamerV3) algorithms, the fused PPO iteration and
+RLHF. One process, one device: JAX's actor layer
 (``LearnerGroup``, the policy server) is not ported."""
 
 from ray_tpu_torch.rl.algorithm import Algorithm  # noqa: F401
 from ray_tpu_torch.rl.algorithms import (  # noqa: F401
     A2C,
     A2CConfig,
-    APPO,
-    APPOConfig,
     ApexDDPG,
     ApexDDPGConfig,
     ApexDQN,
     ApexDQNConfig,
+    APPO,
+    APPOConfig,
     BC,
     BCConfig,
     CQL,
@@ -26,15 +28,26 @@ from ray_tpu_torch.rl.algorithms import (  # noqa: F401
     DDPGConfig,
     DQN,
     DQNConfig,
+    DreamerV3,
+    DreamerV3Config,
     IMPALA,
     IMPALAConfig,
+    MADDPG,
+    MADDPGConfig,
+    MAML,
+    MAMLConfig,
     MARWIL,
     MARWILConfig,
     MaskedCartPole,
+    MBMPO,
+    MBMPOConfig,
     PG,
     PGConfig,
+    PointGoal,
     PPO,
     PPOConfig,
+    QMIX,
+    QMIXConfig,
     R2D2,
     R2D2Config,
     SAC,
@@ -64,6 +77,13 @@ from ray_tpu_torch.rl.env import (  # noqa: F401
 from ray_tpu_torch.rl.env_runner import EnvRunner, compute_gae  # noqa: F401
 from ray_tpu_torch.rl import ope  # noqa: F401
 from ray_tpu_torch.rl.learner import Learner, LearnerGroup  # noqa: F401
+from ray_tpu_torch.rl.multi_agent import (  # noqa: F401
+    CoordinationGame,
+    MultiAgentEnv,
+    MultiAgentPPO,
+    SpreadGame,
+    register_multi_agent_env,
+)
 from ray_tpu_torch.rl.replay_buffer import (  # noqa: F401
     PrioritizedReplayBuffer,
     ReplayBuffer,

@@ -40,9 +40,11 @@ from ray_tpu_torch.tune.trainable import Trainable
 logger = logging.getLogger("ray_tpu_torch.rl")
 
 
-class Algorithm(Trainable):
-    explore_mode = "stochastic"  # DQN overrides with "epsilon_greedy"
-    need_env_runners = True      # offline algorithms opt out
+class DeviceTrainable(Trainable):
+    """A Trainable whose params live on one device (``cuda`` unless
+    given; raises without a GPU): the base of ``Algorithm`` and of the
+    algorithms JAX writes as plain Trainables with in-process envs
+    (MultiAgentPPO, QMIX, MADDPG, MAML, MBMPO, DreamerV3)."""
 
     def __init__(self, config: Dict[str, Any], device: DeviceLike = None):
         self.device = resolve_device(device)
@@ -52,13 +54,25 @@ class Algorithm(Trainable):
     def get_default_config(cls) -> AlgorithmConfig:
         return AlgorithmConfig(algo_class=cls)
 
+    def config_from(self, config: Dict[str, Any]) -> AlgorithmConfig:
+        """The ``AlgorithmConfig`` that ``build()`` passed, else the
+        default config updated from the flat dict."""
+        if "__algo_config" in config:
+            return config["__algo_config"]
+        return self.get_default_config().update_from_dict(config)
+
+    def generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+
+class Algorithm(DeviceTrainable):
+    explore_mode = "stochastic"  # DQN overrides with "epsilon_greedy"
+    need_env_runners = True      # offline algorithms opt out
+
     # ---- Trainable API ----
 
     def setup(self, config: Dict[str, Any]) -> None:
-        if "__algo_config" in config:
-            self.config: AlgorithmConfig = config["__algo_config"]
-        else:
-            self.config = self.get_default_config().update_from_dict(config)
+        self.config: AlgorithmConfig = self.config_from(config)
         cfg = self.config
         if cfg.env.startswith("external://"):
             raise NotImplementedError(

@@ -1,6 +1,8 @@
 """The RL algorithms of the port: on-policy (PPO, PG, A2C, IMPALA with
 V-trace, APPO), value-based (DQN, SimpleQ, Ape-X DQN, R2D2), continuous
-control (DDPG, TD3, SAC, Ape-X DDPG) and offline (BC, MARWIL, CQL, CRR)."""
+control (DDPG, TD3, SAC, Ape-X DDPG), offline (BC, MARWIL, CQL, CRR),
+multi-agent (QMIX, MADDPG), meta-learning (MAML) and model-based (MBMPO,
+DreamerV3)."""
 
 from ray_tpu_torch.rl.algorithms.a2c import A2C, A2CConfig  # noqa: F401
 from ray_tpu_torch.rl.algorithms.apex import (  # noqa: F401
@@ -24,9 +26,26 @@ from ray_tpu_torch.rl.algorithms.dqn import (  # noqa: F401
     SimpleQ,
     SimpleQConfig,
 )
+from ray_tpu_torch.rl.algorithms.dreamer import (  # noqa: F401
+    DreamerV3,
+    DreamerV3Config,
+)
 from ray_tpu_torch.rl.algorithms.impala import (  # noqa: F401
     IMPALA,
     IMPALAConfig,
+)
+from ray_tpu_torch.rl.algorithms.maddpg import (  # noqa: F401
+    MADDPG,
+    MADDPGConfig,
+)
+from ray_tpu_torch.rl.algorithms.maml import (  # noqa: F401
+    MAML,
+    MAMLConfig,
+    PointGoal,
+)
+from ray_tpu_torch.rl.algorithms.mbmpo import (  # noqa: F401
+    MBMPO,
+    MBMPOConfig,
 )
 from ray_tpu_torch.rl.algorithms.offline import (  # noqa: F401
     BC,
@@ -36,6 +55,7 @@ from ray_tpu_torch.rl.algorithms.offline import (  # noqa: F401
 )
 from ray_tpu_torch.rl.algorithms.pg import PG, PGConfig  # noqa: F401
 from ray_tpu_torch.rl.algorithms.ppo import PPO, PPOConfig  # noqa: F401
+from ray_tpu_torch.rl.algorithms.qmix import QMIX, QMIXConfig  # noqa: F401
 from ray_tpu_torch.rl.algorithms.r2d2 import (  # noqa: F401
     MaskedCartPole,
     R2D2,

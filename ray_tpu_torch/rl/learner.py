@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.parallel.train_step import value_and_grad
+from ray_tpu_torch.parallel.train_step import _unflatten_like, value_and_grad
 from ray_tpu_torch.rl import models
 
 
@@ -55,17 +55,6 @@ def clip_global_norm(grads, max_norm: float):
     norm = torch.sqrt(sum(torch.sum(g * g) for g in leaves))
     scale = torch.clamp(max_norm / (norm + 1e-8), max=1.0)
     return models.tree_map(lambda g: g * scale, grads), norm
-
-
-def _tree_like(tree, flat: Dict[str, torch.Tensor], prefix: str = ""):
-    """``flat`` (leaves by ``_leaves`` path) nested as ``tree``."""
-    if isinstance(tree, dict):
-        return {k: _tree_like(v, flat, f"{prefix}/{k}" if prefix else k)
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_like(v, flat, f"{prefix}/{i}" if prefix else str(i))
-                for i, v in enumerate(tree)]
-    return flat[prefix]
 
 
 def mean_metrics(metrics: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
@@ -120,7 +109,7 @@ class Learner:
         (loss, metrics), flat = value_and_grad(
             lambda p: self._loss_fn(p, batch, self._gen), self.params,
             has_aux=True)
-        grads = _tree_like(self.params, flat)
+        grads = _unflatten_like(self.params, flat)
         if self._grad_sync is not None:
             grads = self._grad_sync(grads)
         if self._grad_clip:

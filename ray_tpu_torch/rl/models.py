@@ -239,15 +239,24 @@ def value(params: Dict, obs: torch.Tensor) -> torch.Tensor:
 # ---- distributions ----
 
 
+def gumbel(gen: torch.Generator, shape,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Standard Gumbel draws of ``shape`` on ``gen``'s device:
+    ``-log(-log(u))`` of uniform draws clamped below at ``dtype``'s tiny
+    (``jax.random.gumbel``'s recipe; the draws are not JAX's)."""
+    tiny = torch.finfo(dtype).tiny
+    u = torch.rand(tuple(shape), generator=gen, dtype=dtype,
+                   device=gen.device).clamp_(min=tiny)
+    return -torch.log(-torch.log(u))
+
+
 def categorical_sample(gen: torch.Generator,
                        logits: torch.Tensor) -> torch.Tensor:
     """One action per row, drawn as ``jax.random.categorical`` draws
-    (Gumbel-max: argmax of logits plus Gumbel noise) from ``gen``; no host
-    read."""
-    tiny = torch.finfo(logits.dtype).tiny
-    u = torch.rand(logits.shape, generator=gen, dtype=logits.dtype,
-                   device=logits.device).clamp_(min=tiny)
-    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+    (Gumbel-max: argmax of logits plus ``gumbel`` noise of their shape)
+    from ``gen``; no host read."""
+    return torch.argmax(logits + gumbel(gen, logits.shape, logits.dtype),
+                        dim=-1)
 
 
 def categorical_logp(logits: torch.Tensor,

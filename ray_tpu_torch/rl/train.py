@@ -4,7 +4,8 @@
 Reference analogs: ``rllib/train.py``, ``rllib/evaluate.py`` and
 ``rllib/algorithms/registry.py``. The registry holds the algorithms the
 port has, under JAX's names (PPO, APPO, IMPALA, A2C, PG, DQN, SIMPLEQ,
-APEXDQN, APEXDDPG, SAC, DDPG, TD3, BC, MARWIL, CQL, CRR, R2D2); the
+APEXDQN, APEXDDPG, SAC, DDPG, TD3, BC, MARWIL, CQL, CRR, R2D2, MAML,
+MBMPO, QMIX, MADDPG, DREAMERV3); the
 bundled tuned examples are JAX's for the same algorithms. The checkpoint directory stores the pickled
 ``AlgorithmConfig`` next to the Trainable payload so ``run_evaluate`` can
 rebuild the algorithm without re-specifying flags. Every entry point runs
@@ -42,6 +43,9 @@ def algorithm_registry() -> Dict[str, type]:
         "BC": rl.BCConfig, "MARWIL": rl.MARWILConfig,
         "CQL": rl.CQLConfig, "CRR": rl.CRRConfig,
         "R2D2": rl.R2D2Config,
+        "MAML": rl.MAMLConfig, "MBMPO": rl.MBMPOConfig,
+        "QMIX": rl.QMIXConfig, "MADDPG": rl.MADDPGConfig,
+        "DREAMERV3": rl.DreamerV3Config,
     }
 
 

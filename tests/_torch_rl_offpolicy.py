@@ -1,7 +1,10 @@
-"""Helpers of the off-policy parity tests (``test_torch_rl_value.py``,
-``test_torch_rl_continuous.py``, ``test_torch_rl_offline.py``): tree
-comparison, JAX algorithms built without their actors, and the replay of
-JAX's noise draws through the port's noise helpers.
+"""Helpers of the off-policy, multi-agent and model-based parity tests
+(``test_torch_rl_value.py``, ``test_torch_rl_continuous.py``,
+``test_torch_rl_offline.py``, ``test_torch_rl_multi_agent.py``,
+``test_torch_rl_qmix_maddpg.py``, ``test_torch_rl_meta.py``,
+``test_torch_rl_dreamer.py``): tree comparison, JAX algorithms built
+without their actors, JAX's closures, and the replay of JAX's noise and
+categorical draws through the port's noise helpers.
 
 Conventions of those tests: CPU, float32 on both sides, torch on one
 thread, JAX's params carried across with ``rl_params_from_jax`` (init is
@@ -14,6 +17,7 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from ray_tpu.rl.env import EnvSpec as JEnvSpec
@@ -44,6 +48,22 @@ def assert_tree_close(got, want, tol=REL):
         assert got[name].shape == want[name].shape, name
         assert rel(got[name], want[name]) < tol, (name,
                                                   rel(got[name], want[name]))
+
+
+def tree_equal(a, b) -> bool:
+    """Two port trees of one structure equal leaf for leaf, bit for bit."""
+    la, lb = _leaves(a), _leaves(b)
+    return la.keys() == lb.keys() and all(
+        torch.equal(la[k].cpu(), lb[k].cpu()) for k in la)
+
+
+def assert_metrics_close(got: dict, want: dict):
+    """A trainable's result against JAX's: the same keys, every float
+    (the wall clock aside) within 1e-5 of JAX's, relative above 1."""
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        if isinstance(v, float) and k != "time_total_s":
+            assert abs(got[k] - v) < ATOL * max(1.0, abs(v)), (k, got[k], v)
 
 
 def jspec(spec):
@@ -147,8 +167,17 @@ class JaxDraws:
                          else [key])
         return draws
 
+    @classmethod
+    def of_keys(cls, keys) -> "JaxDraws":
+        """One draw from each of ``keys`` in turn, and no more."""
+        draws = cls(0, 0)
+        draws.key = None
+        draws.pending = list(keys)
+        return draws
+
     def _next_key(self):
         if not self.pending:
+            assert self.key is not None, "more draws than JAX's keys"
             self.key, sub = jax.random.split(self.key)
             self.pending = (list(jax.random.split(sub, self.n_keys))
                             if self.n_keys else [sub])
@@ -165,9 +194,38 @@ class JaxDraws:
                                   minval=low, maxval=high)
         return torch.tensor(np.asarray(draw), device=gen.device)
 
-    def install(self, monkeypatch, tmodels):
+    def gumbel(self, gen, shape, dtype=torch.float32):
+        """``jax.random.categorical(key, logits)`` is the argmax of
+        ``logits + jax.random.gumbel(key, logits.shape)``, so the port's
+        ``categorical_sample`` through this draw picks JAX's category."""
+        self.calls += 1
+        draw = jax.random.gumbel(self._next_key(), tuple(shape))
+        return torch.tensor(np.asarray(draw), device=gen.device)
+
+    def install(self, monkeypatch, tmodels, gumbel: bool = False):
         monkeypatch.setattr(tmodels, "normal", self.normal)
         monkeypatch.setattr(tmodels, "uniform", self.uniform)
+        if gumbel:
+            monkeypatch.setattr(tmodels, "gumbel", self.gumbel)
+
+
+def closure(fn, name: str):
+    """The function ``name`` that ``fn`` (a jitted or wrapped closure of a
+    JAX algorithm's ``setup``) closes over."""
+    while hasattr(fn, "__wrapped__"):
+        fn = fn.__wrapped__
+    cells = dict(zip(fn.__code__.co_freevars, fn.__closure__))
+    return cells[name].cell_contents
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """Torch on one thread for a test module (a tiny step on a contended
+    CPU's thread pool is many times slower)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def shares_storage(a, b) -> list:

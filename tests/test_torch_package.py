@@ -86,6 +86,13 @@ def test_port_imports_no_jax_and_no_ray_tpu():
             "ray_tpu_torch/rl/algorithms/offline.py",
             "ray_tpu_torch/rl/algorithms/cql.py",
             "ray_tpu_torch/rl/algorithms/crr.py",
+            "ray_tpu_torch/rl/algorithms/qmix.py",
+            "ray_tpu_torch/rl/algorithms/maddpg.py",
+            "ray_tpu_torch/rl/algorithms/maml.py",
+            "ray_tpu_torch/rl/algorithms/mbmpo.py",
+            "ray_tpu_torch/rl/algorithms/dreamer.py",
+            "ray_tpu_torch/rl/multi_agent.py",
+            "ray_tpu_torch/rl/evaluation.py",
             "ray_tpu_torch/rl/replay_buffer.py", "ray_tpu_torch/rl/ope.py",
             "ray_tpu_torch/rl/connectors.py", "ray_tpu_torch/rl/config.py",
             "ray_tpu_torch/rl/rl_module.py",
@@ -244,3 +251,27 @@ def test_build_names_library_by_source_hash():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "ray_tpu_torch/_build/" in ignored
+
+
+# the multi-agent and model-based algorithms' registry names and yamls
+MULTI_AGENT_MODEL_BASED = {"MAML": "pointgoal-maml", "MBMPO": "pendulum-mbmpo",
+                           "QMIX": "coordination-qmix",
+                           "MADDPG": "spread-maddpg",
+                           "DREAMERV3": "cartpole-dreamerv3"}
+
+
+@pytest.mark.parametrize("run", sorted(MULTI_AGENT_MODEL_BASED))
+def test_registry_and_yaml_of_multi_agent_and_model_based(run):
+    """Each new registry name builds its config, and its tuned example is
+    JAX's file byte for byte and names that algorithm."""
+    from ray_tpu_torch.rl import train as ttrain
+
+    cfg = ttrain.algorithm_registry()[run]()
+    assert cfg.algo_class.__name__ == {"DREAMERV3": "DreamerV3"}.get(run, run)
+    name = MULTI_AGENT_MODEL_BASED[run]
+    ours = ROOT / "ray_tpu_torch" / "rl" / "tuned_examples" / f"{name}.yaml"
+    jaxs = ROOT / "ray_tpu" / "rl" / "tuned_examples" / f"{name}.yaml"
+    assert ours.read_bytes() == jaxs.read_bytes()
+    exp = ttrain.load_tuned_example(name)
+    assert exp["run"] == run
+    cfg.update_from_dict(exp["config"])   # every key is known

@@ -320,7 +320,7 @@ def test_r2d2_two_steps_match_jax(tmp_path):
 
 PORTED = ("PPO", "APPO", "IMPALA", "A2C", "PG", "DQN", "SIMPLEQ", "APEXDQN",
           "APEXDDPG", "SAC", "DDPG", "TD3", "BC", "MARWIL", "CQL", "CRR",
-          "R2D2")
+          "R2D2", "MAML", "MBMPO", "QMIX", "MADDPG", "DREAMERV3")
 
 
 def test_registry_and_tuned_examples_match_jax():
@@ -333,7 +333,7 @@ def test_registry_and_tuned_examples_match_jax():
         assert reg[name]().algo_class.__name__ \
             == jreg[name]().algo_class.__name__, name
     names = ttrain.list_tuned_examples()
-    assert len(names) == 10
+    assert len(names) == 15
     for name in names:
         exp = ttrain.load_tuned_example(name)
         assert exp == jtrain.load_tuned_example(name), name
