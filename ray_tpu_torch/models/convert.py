@@ -132,8 +132,12 @@ def rl_params_from_jax(np_params: dict, like, *,
     ``{agent, mixer, target_agent, target_mixer}`` (the mixer's four
     hypernetworks), MADDPG's lists ``{actors, critics, actors_t,
     critics_t}``, MAML's ``{pi, log_std}``, MBMPO's [K]-stacked ensemble
-    (every leaf led by the member axis) and DreamerV3's world model
-    ``{enc, gru, prior, post, dec, rew, cont}``, actor and critic.
+    (every leaf led by the member axis), DreamerV3's world model
+    ``{enc, gru, prior, post, dec, rew, cont}``, actor and critic,
+    AlphaZero's and LeelaChessZero's ``{pi, v}``, SlateQ's ``{q,
+    target}`` and the Decision Transformer's tree (its ``blocks`` list of
+    ``{qkv, proj, fc1, fc2}`` and the ``emb_t`` table). ES and ARS take
+    JAX's flat float64 center as it is.
     ``like`` is a tree the port's own init
     made for the same config (an algorithm's ``get_params()``): every leaf
     it has is copied from ``np_params`` and shape-checked against it, on
@@ -161,12 +165,15 @@ def params_to_numpy(params: Params) -> dict:
     """The inverse of ``params_from_jax``: the port's params as a pytree of
     float32 numpy arrays shaped like JAX's, copied to the host. Nested
     dicts and lists (the reward model's ``lm``, a policy's layers) keep
-    their structure."""
+    their structure; numpy leaves (the bandits' float64 arm statistics)
+    are copied as they are."""
     def host(node):
         if isinstance(node, dict):
             return {k: host(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [host(v) for v in node]
+        if isinstance(node, np.ndarray):
+            return node.copy()
         return node.detach().to(device="cpu", dtype=torch.float32,
                                 copy=True).numpy()
 

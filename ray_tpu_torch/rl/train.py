@@ -3,10 +3,11 @@
 
 Reference analogs: ``rllib/train.py``, ``rllib/evaluate.py`` and
 ``rllib/algorithms/registry.py``. The registry holds the algorithms the
-port has, under JAX's names (PPO, APPO, IMPALA, A2C, PG, DQN, SIMPLEQ,
-APEXDQN, APEXDDPG, SAC, DDPG, TD3, BC, MARWIL, CQL, CRR, R2D2, MAML,
-MBMPO, QMIX, MADDPG, DREAMERV3); the
-bundled tuned examples are JAX's for the same algorithms. The checkpoint directory stores the pickled
+port has, under JAX's names: every algorithm JAX registers (PPO, APPO,
+IMPALA, A2C, PG, MAML, MBMPO, DQN, APEXDQN, APEXDDPG, SIMPLEQ, SAC, DDPG,
+TD3, BC, MARWIL, CQL, CRR, DT, ES, ARS, QMIX, MADDPG, SLATEQ, DREAMERV3,
+ALPHAZERO, LEELACHESSZERO, R2D2, BANDITLINUCB, BANDITLINTS); the bundled
+tuned examples are JAX's. The checkpoint directory stores the pickled
 ``AlgorithmConfig`` next to the Trainable payload so ``run_evaluate`` can
 rebuild the algorithm without re-specifying flags. Every entry point runs
 on ``cuda`` unless given ``device``. PyYAML is imported only where a YAML
@@ -28,7 +29,7 @@ from ray_tpu_torch._device import DeviceLike
 
 
 def algorithm_registry() -> Dict[str, type]:
-    """name -> AlgorithmConfig class for every ported algorithm."""
+    """name -> AlgorithmConfig class for every algorithm (JAX's keys)."""
     from ray_tpu_torch import rl
 
     return {
@@ -44,8 +45,12 @@ def algorithm_registry() -> Dict[str, type]:
         "CQL": rl.CQLConfig, "CRR": rl.CRRConfig,
         "R2D2": rl.R2D2Config,
         "MAML": rl.MAMLConfig, "MBMPO": rl.MBMPOConfig,
+        "DT": rl.DTConfig, "ES": rl.ESConfig, "ARS": rl.ARSConfig,
         "QMIX": rl.QMIXConfig, "MADDPG": rl.MADDPGConfig,
-        "DREAMERV3": rl.DreamerV3Config,
+        "SLATEQ": rl.SlateQConfig, "DREAMERV3": rl.DreamerV3Config,
+        "ALPHAZERO": rl.AlphaZeroConfig,
+        "LEELACHESSZERO": rl.LeelaChessZeroConfig,
+        "BANDITLINUCB": rl.BanditConfig, "BANDITLINTS": rl.BanditConfig,
     }
 
 
@@ -55,7 +60,14 @@ def get_algorithm_config(run: str):
     if key not in reg:
         raise ValueError(
             f"unknown algorithm {run!r}; available: {sorted(reg)}")
-    return reg[key]()
+    cfg = reg[key]()
+    # the two bandit flavors share a config class; pick the right algo
+    if key in ("BANDITLINTS", "BANDITLINUCB"):
+        from ray_tpu_torch import rl
+
+        cfg.algo_class = (rl.BanditLinTS if key == "BANDITLINTS"
+                          else rl.BanditLinUCB)
+    return cfg
 
 
 def _load_overrides(config_json: Optional[str],

@@ -2,8 +2,11 @@
 (``test_torch_rl_value.py``, ``test_torch_rl_continuous.py``,
 ``test_torch_rl_offline.py``, ``test_torch_rl_multi_agent.py``,
 ``test_torch_rl_qmix_maddpg.py``, ``test_torch_rl_meta.py``,
-``test_torch_rl_dreamer.py``): tree comparison, JAX algorithms built
-without their actors, JAX's closures, and the replay of JAX's noise and
+``test_torch_rl_dreamer.py``, ``test_torch_rl_pixel_bandits.py``,
+``test_torch_rl_es.py``, ``test_torch_rl_alphazero.py``,
+``test_torch_rl_dt_slateq.py``): tree comparison, JAX algorithms built
+without their actors (or with their actors in this process,
+``local_actors``), JAX's closures, and the replay of JAX's noise and
 categorical draws through the port's noise helpers.
 
 Conventions of those tests: CPU, float32 on both sides, torch on one
@@ -14,6 +17,7 @@ within 1e-4 of the reference's max |value| per leaf (:57).
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -234,3 +238,40 @@ def shares_storage(a, b) -> list:
     return [k for k in la
             if la[k].untyped_storage().data_ptr()
             == lb[k].untyped_storage().data_ptr()]
+
+
+class _LocalHandle:
+    """An actor handle whose ``.method.remote(...)`` runs the method on
+    an in-process instance and returns its value (the "ref")."""
+
+    def __init__(self, obj):
+        self._obj = obj
+
+    def __getattr__(self, name):
+        return SimpleNamespace(remote=getattr(self._obj, name))
+
+
+class _LocalActorClass:
+    """Stands in for an ``ActorClass``: ``.options(...)`` is ignored and
+    ``.remote(*args)`` builds the actor's own class (``ActorClass._cls``)
+    in this process."""
+
+    def __init__(self, actor_class):
+        self._cls = actor_class._cls
+
+    def options(self, **_):
+        return self
+
+    def remote(self, *args, **kwargs):
+        return _LocalHandle(self._cls(*args, **kwargs))
+
+
+def local_actors(monkeypatch, module, *names):
+    """JAX's actors ``names`` of ``module`` built in this process, and
+    ``ray_tpu.get`` / ``ray_tpu.kill`` in the module's namespace the
+    identity and a no-op: no cluster starts."""
+    for name in names:
+        monkeypatch.setattr(module, name,
+                            _LocalActorClass(getattr(module, name)))
+    monkeypatch.setattr(module, "ray_tpu", SimpleNamespace(
+        get=lambda refs: refs, kill=lambda handle: None))

@@ -91,6 +91,14 @@ def test_port_imports_no_jax_and_no_ray_tpu():
             "ray_tpu_torch/rl/algorithms/maml.py",
             "ray_tpu_torch/rl/algorithms/mbmpo.py",
             "ray_tpu_torch/rl/algorithms/dreamer.py",
+            "ray_tpu_torch/rl/algorithms/bandits.py",
+            "ray_tpu_torch/rl/algorithms/es.py",
+            "ray_tpu_torch/rl/algorithms/ars.py",
+            "ray_tpu_torch/rl/algorithms/alphazero.py",
+            "ray_tpu_torch/rl/algorithms/lc0.py",
+            "ray_tpu_torch/rl/algorithms/dt.py",
+            "ray_tpu_torch/rl/algorithms/slateq.py",
+            "ray_tpu_torch/rl/pixel_env.py",
             "ray_tpu_torch/rl/multi_agent.py",
             "ray_tpu_torch/rl/evaluation.py",
             "ray_tpu_torch/rl/replay_buffer.py", "ray_tpu_torch/rl/ope.py",
@@ -275,3 +283,73 @@ def test_registry_and_yaml_of_multi_agent_and_model_based(run):
     exp = ttrain.load_tuned_example(name)
     assert exp["run"] == run
     cfg.update_from_dict(exp["config"])   # every key is known
+
+
+# the last RL families' registry names and yamls (None: no tuned example)
+SEARCH_POPULATION_SEQUENCE_SLATE = {
+    "ES": "cartpole-es", "ARS": None, "ALPHAZERO": None,
+    "LEELACHESSZERO": "connect4-lc0", "DT": None, "SLATEQ": "recsim-slateq",
+    "BANDITLINUCB": None, "BANDITLINTS": None}
+
+
+@pytest.mark.parametrize("run", sorted(SEARCH_POPULATION_SEQUENCE_SLATE))
+def test_registry_and_yaml_of_search_population_sequence_slate(run):
+    """Each name builds JAX's class through ``get_algorithm_config`` (the
+    two bandits share a config class), and its tuned example is JAX's
+    file byte for byte and names that algorithm."""
+    from ray_tpu.rl import train as jtrain
+    from ray_tpu_torch.rl import train as ttrain
+
+    cfg = ttrain.get_algorithm_config(run)
+    assert cfg.algo_class.__name__ \
+        == jtrain.get_algorithm_config(run).algo_class.__name__
+    assert cfg.algo_class.__module__.startswith("ray_tpu_torch.rl.")
+    name = SEARCH_POPULATION_SEQUENCE_SLATE[run]
+    if name is None:
+        return
+    ours = ROOT / "ray_tpu_torch" / "rl" / "tuned_examples" / f"{name}.yaml"
+    jaxs = ROOT / "ray_tpu" / "rl" / "tuned_examples" / f"{name}.yaml"
+    assert ours.read_bytes() == jaxs.read_bytes()
+    exp = ttrain.load_tuned_example(name)
+    assert exp["run"] == run
+    cfg.update_from_dict(exp["config"])   # every key is known
+
+
+def test_rl_exports_cover_jax_for_the_last_families():
+    """What JAX's ``rl`` and ``rl.algorithms`` export for the pixel envs,
+    bandits, ES/ARS, AlphaZero/LC0, DT and SlateQ, the port exports."""
+    import ray_tpu.rl as jrl
+    import ray_tpu.rl.algorithms as jalgos
+    import ray_tpu_torch.rl.algorithms as talgos
+
+    names = {"Game", "MCTS", "TicTacToe", "ConnectFour", "RecSlateEnv",
+             "CatchPixels", "FrameStack", "PixelWrapper", "gym_vector_env",
+             "ES", "ESConfig", "ARS", "ARSConfig", "AlphaZero",
+             "AlphaZeroConfig", "LeelaChessZero", "LeelaChessZeroConfig",
+             "DT", "DTConfig", "SlateQ", "SlateQConfig", "BanditConfig",
+             "BanditLinUCB", "BanditLinTS", "LinearBanditEnv"}
+    for jmod, tmod in ((jrl, trl), (jalgos, talgos)):
+        want = {n for n in names if hasattr(jmod, n)}
+        assert want and {n for n in want if hasattr(tmod, n)} == want
+
+
+def test_last_rl_families_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    data = {"obs": np.zeros((4, 4), np.float32),
+            "actions": np.zeros(4, np.int64),
+            "rewards": np.ones(4, np.float32),
+            "dones": np.asarray([0, 1, 0, 1], bool)}
+    for cfg in (trl.ESConfig(), trl.ARSConfig(), trl.AlphaZeroConfig(),
+                trl.LeelaChessZeroConfig(), trl.SlateQConfig(),
+                trl.DTConfig(offline_data=data),
+                trl.BanditLinUCB.get_default_config(),
+                trl.BanditLinTS.get_default_config()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cfg.build()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trl.AlphaZero({"__algo_config": trl.AlphaZeroConfig()})
+    from ray_tpu_torch.rl import train as ttrain
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.run_train("SLATEQ", stop_iters=1)

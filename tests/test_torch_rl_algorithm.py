@@ -301,10 +301,11 @@ def test_run_train_and_tuned_example(tmp_path):
     assert ev["episodes"] >= 1
     assert ttrain.list_tuned_examples() == [
         "cartpole-apex-dqn", "cartpole-dqn", "cartpole-dreamerv3",
-        "cartpole-impala", "cartpole-pg", "cartpole-ppo",
-        "coordination-qmix", "masked-cartpole-r2d2", "pendulum-apex-ddpg",
-        "pendulum-ddpg", "pendulum-mbmpo", "pendulum-sac", "pendulum-td3",
-        "pointgoal-maml", "spread-maddpg"]
+        "cartpole-es", "cartpole-impala", "cartpole-pg", "cartpole-ppo",
+        "connect4-lc0", "coordination-qmix", "masked-cartpole-r2d2",
+        "pendulum-apex-ddpg", "pendulum-ddpg", "pendulum-mbmpo",
+        "pendulum-sac", "pendulum-td3", "pointgoal-maml", "recsim-slateq",
+        "spread-maddpg"]
     exp = ttrain.load_tuned_example("cartpole-pg")
     assert exp["run"] == "PG" and exp["stop"]["training_iteration"] == 40
     res = ttrain.run_tuned_example("cartpole-pg", stop_iters=1, out=out,
@@ -312,7 +313,7 @@ def test_run_train_and_tuned_example(tmp_path):
     assert res["env_steps_this_iter"] == 2 * 8 * 128
     assert res["training_iteration"] == 1
     with pytest.raises(ValueError, match="unknown algorithm"):
-        ttrain.get_algorithm_config("ALPHAZERO")
+        ttrain.get_algorithm_config("NO_SUCH_ALGO")
     with pytest.raises(FileNotFoundError, match="bundled"):
         ttrain.load_tuned_example("no-such-example")
 

@@ -320,7 +320,9 @@ def test_r2d2_two_steps_match_jax(tmp_path):
 
 PORTED = ("PPO", "APPO", "IMPALA", "A2C", "PG", "DQN", "SIMPLEQ", "APEXDQN",
           "APEXDDPG", "SAC", "DDPG", "TD3", "BC", "MARWIL", "CQL", "CRR",
-          "R2D2", "MAML", "MBMPO", "QMIX", "MADDPG", "DREAMERV3")
+          "R2D2", "MAML", "MBMPO", "QMIX", "MADDPG", "DREAMERV3", "ES",
+          "ARS", "ALPHAZERO", "LEELACHESSZERO", "DT", "SLATEQ",
+          "BANDITLINUCB", "BANDITLINTS")
 
 
 def test_registry_and_tuned_examples_match_jax():
@@ -328,12 +330,12 @@ def test_registry_and_tuned_examples_match_jax():
     class JAX's name builds; every bundled yaml is JAX's copy and runs a
     registered algorithm."""
     reg, jreg = ttrain.algorithm_registry(), jtrain.algorithm_registry()
-    assert sorted(reg) == sorted(PORTED)
+    assert sorted(reg) == sorted(PORTED) == sorted(jreg)
     for name in PORTED:
-        assert reg[name]().algo_class.__name__ \
-            == jreg[name]().algo_class.__name__, name
+        assert ttrain.get_algorithm_config(name).algo_class.__name__ \
+            == jtrain.get_algorithm_config(name).algo_class.__name__, name
     names = ttrain.list_tuned_examples()
-    assert len(names) == 15
+    assert len(names) == 18
     for name in names:
         exp = ttrain.load_tuned_example(name)
         assert exp == jtrain.load_tuned_example(name), name
