@@ -147,7 +147,11 @@ process per source, all at once), then:
    (84x84x4, 6 actions, 256 frames): loss and gradients against the CPU
    within ``RL_CNN_REL_TOL``, the median of 10 updates and peak memory;
    ``bench_fused_vs_host()`` at its defaults and the device busy share
-   of one profiled iteration of each leg; no flash launch;
+   of one profiled iteration of each leg; the off-policy, multi-agent,
+   model-based, search, population, sequence, slate, bandit and pixel
+   families; PPO on ``external://0`` through the policy server, fed by a
+   CartPole simulator thread over HTTP (two iterations, JAX's checks,
+   the ms of a ``get_action`` round trip); no flash launch;
 16. ViT (``vit``): ``b16`` at 224 px, batch 64, fp32 masters, bf16
    compute, remat, 10 constant-Adam steps at 1e-3 on the toy task of
    ``tests/test_model_vit.py``; the loss falls, no flash launch; step ms
@@ -162,7 +166,9 @@ process per source, all at once), then:
    steps_per_launch=4)`` against the same plain loop, launches exactly
    2L/L/L a step, a sharded checkpoint of the state round-tripped
    bit-equal, each op of the collective group API once on a one-member
-   NCCL group, and the process group torn down; mesh and plain step ms
+   NCCL group, a PPO minibatch through ``Learner(mesh=...)`` against the
+   plain ``Learner`` (within ``RL_MESH_TOL``), and the process group torn
+   down; mesh and plain step ms
    (the DTensor host cost), the device busy share, peak memory and MFU;
 18. sequence and pipeline parallelism on one card (``seqpipe``): the
    ring's loops (``context.ring_forward`` and ``ring_backward``) with
@@ -179,10 +185,20 @@ process per source, all at once), then:
    loop; launches exactly as ``seqpipe_launches`` gives, step ms (each
    median leaves out step 1, which warms up), busy share, MFU and peak
    memory of each against the plain step;
-19. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
+19. the tools (``tools``), each tool's ``main`` called in process:
+   ``rt profile`` on 1b training ([4, 2048], 5 steps, then 8 at K = 4)
+   and on 7b generate, speculative and stream (JAX's defaults), record
+   kinds and counts exact, steady MFU in (0, 1], the JSON artifact's
+   keys, two ``--torch-trace`` device traces naming the flash kernels, a
+   timeline step span a record; kv_bench's leg 1 at 7b (warm hits, first
+   tokens against a cold forward wherever the margin clears
+   ``WARM_MARGIN_REL_TOL``, cold and warm TTFT p50) and stream_bench's
+   leg 1 at 7b (64 streams of 64 tokens, counts exact, tok/s); launches
+   exact where the work fixes them;
+20. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
 
 Each path (serve, serve_kv, llm, spec, moe, train, driver, moe_train,
-rlhf, mesh, seqpipe)
+rlhf, mesh, seqpipe, tools)
 zeroes every kernel's launch count
 just before it runs and reads them just after; a kernel of the paths that
 was not launched fails the run (the float32 CUDA-core forward is on no
@@ -203,6 +219,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
 import queue
 import subprocess
 import sys
@@ -4568,14 +4585,189 @@ def rl_search_population_sequence_slate(torch, np, rltrain, flash, smi):
               time.perf_counter() - t_part})
 
 
+
+# JAX's external-env test (tests/test_rl_extras.py:210-250): PPO on
+# external://0 fed by a CartPole simulator thread over HTTP
+RL_EXTERNAL = {"spec": {"obs_dim": 4, "num_actions": 2},
+               "rollout_fragment_length": 64, "num_epochs": 2,
+               "minibatch_size": 64, "iterations": 2}
+
+
+def rl_external(torch, np, smi):
+    """``PPOConfig`` with ``env = "external://0"``: the port's policy
+    server in this process, a simulator thread driving CartPole through
+    the port's ``PolicyClient`` (each ``get_action`` round trip timed),
+    two iterations held to JAX's assertions."""
+    import threading
+
+    import ray_tpu_torch.rl as trl
+    from ray_tpu_torch.rl.env import CartPole
+
+    c = RL_EXTERNAL
+    cfg = trl.PPOConfig()
+    cfg.env = "external://0"
+    cfg.env_config = {"spec": dict(c["spec"])}
+    cfg.env_runners(num_env_runners=1, num_envs_per_runner=1,
+                    rollout_fragment_length=c["rollout_fragment_length"])
+    cfg.num_epochs = c["num_epochs"]
+    cfg.minibatch_size = c["minibatch_size"]
+    algo = cfg.build(device=DEV)
+    # a broken server fails the phase instead of hanging the script:
+    # stopping the algorithm ends a waiting sample with a RuntimeError
+    watchdog = threading.Timer(300.0, algo.stop)
+    watchdog.start()
+    port = algo.server_ports[0]
+    stop = threading.Event()
+    round_trips, errors = [], []
+
+    def simulator():
+        try:
+            client = trl.PolicyClient(f"http://127.0.0.1:{port}")
+            env = CartPole(1, seed=3)
+            while not stop.is_set():
+                eid = client.start_episode()
+                obs = env.reset()
+                for _ in range(100):
+                    t0 = time.perf_counter()
+                    a = client.get_action(eid, obs[0])
+                    round_trips.append(time.perf_counter() - t0)
+                    obs, r, d = env.step(np.array([a]))
+                    client.log_returns(eid, float(r[0]))
+                    if d[0] or stop.is_set():
+                        break
+                client.end_episode(eid)
+        except Exception as e:  # noqa: BLE001 — reported by the check
+            errors.append(repr(e))
+
+    sim = threading.Thread(target=simulator, daemon=True)
+    sim.start()
+    results, iter_s = [], []
+    try:
+        for _ in range(c["iterations"]):
+            t0 = time.perf_counter()
+            results.append(algo.step())
+            iter_s.append(time.perf_counter() - t0)
+    finally:
+        stop.set()
+        watchdog.cancel()
+        sim.join(timeout=30)
+        algo.stop()
+    # the first round trips wait for the first params (503 retries)
+    rt = np.asarray(round_trips[10:]) * 1e3
+    m1, m2 = results
+    stats = {**m1, **m2}
+    rec = {"phase": "rl", "part": "external_env", "nvidia_smi": smi,
+           "config": c, "iteration_s": iter_s,
+           "policy_loss": [m1["policy_loss"], m2["policy_loss"]],
+           "env_steps_total": stats["env_steps_total"],
+           "get_action_round_trips": len(round_trips),
+           "get_action_ms": {"median": float(np.median(rt)),
+                             "p90": float(np.percentile(rt, 90)),
+                             "mean": float(rt.mean())},
+           "simulator_errors": errors, "simulator_alive": sim.is_alive()}
+    emit(rec)
+    print(f"policy server: get_action round trip median "
+          f"{rec['get_action_ms']['median']:.3f} ms", flush=True)
+    check(not errors and not sim.is_alive(),
+          f"external env: simulator {errors}, alive {sim.is_alive()}")
+    check(np.isfinite(m1["policy_loss"]) and np.isfinite(m2["policy_loss"]),
+          f"external env: policy losses {rec['policy_loss']}")
+    check(stats["env_steps_total"] >= 128,
+          f"external env: env_steps_total {stats['env_steps_total']}")
+    return rec
+
+
+# Learner(mesh=) against the plain Learner on the one-rank mesh: a PPO
+# minibatch of CartPole-shaped rows (the tuned example's widths), and a
+# SAC minibatch of Pendulum-shaped rows (its loss draws noise)
+RL_MESH_ROWS, RL_MESH_TOL = 512, 1e-5
+
+
+def rl_learner_mesh(torch, np, mesh):
+    """One PPO minibatch update through ``Learner(mesh=mesh)`` (the
+    minibatch a DTensor on ``dp``, params replicated) against the plain
+    ``Learner`` from the same params: params and metrics within
+    ``RL_MESH_TOL``; then 20 more updates of each, timed. Then one SAC
+    update of each (its noise drawn on the mesh as replicated DTensors),
+    held to the same tolerance."""
+    from ray_tpu_torch.parallel.train_step import _leaves
+    from ray_tpu_torch.rl import models
+    from ray_tpu_torch.rl.algorithms import sac
+    from ray_tpu_torch.rl.algorithms.ppo import make_ppo_loss
+    from ray_tpu_torch.rl.env import EnvSpec
+    from ray_tpu_torch.rl.learner import Learner
+
+    spec = EnvSpec(obs_dim=4, num_actions=2)
+    params = models.init_policy(
+        torch.Generator(device=DEV).manual_seed(0), spec, (64, 64))
+    rng = np.random.default_rng(0)
+    n = RL_MESH_ROWS
+    batch = {"obs": rng.standard_normal((n, 4)).astype(np.float32),
+             "actions": rng.integers(0, 2, n),
+             "logp": (-0.69 + 0.1 * rng.standard_normal(n)).astype(
+                 np.float32),
+             "advantages": (rng.standard_normal(n) * np.repeat(
+                 [1.0, 10.0], n // 2)).astype(np.float32),
+             "value_targets": rng.standard_normal(n).astype(np.float32)}
+    loss = make_ppo_loss(spec, 0.2, 0.5, 0.01)
+    plain = Learner(params, loss, 3e-4, grad_clip=0.5, device=DEV)
+    on_mesh = Learner(params, loss, 3e-4, grad_clip=0.5, mesh=mesh)
+    mp = {k: float(v) for k, v in plain.update_minibatch(batch).items()}
+    mm = {k: float(v) for k, v in on_mesh.update_minibatch(batch).items()}
+    a, b = _leaves(plain.get_params()), _leaves(on_mesh.get_params())
+    gap = max(float((a[k] - b[k]).abs().max()) for k in a)
+    metric_gap = max(abs(mp[k] - mm[k]) for k in mp)
+    ms = {}
+    for name, lrn in (("plain", plain), ("mesh", on_mesh)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            m = lrn.update_minibatch(batch)
+        float(m["loss"])
+        ms[name] = (time.perf_counter() - t0) * 1e3 / 20
+    out = {"rows": n, "params_max_abs_gap": gap,
+           "metrics_max_abs_gap": metric_gap, "metrics_plain": mp,
+           "metrics_mesh": mm, "update_ms": ms, "tolerance": RL_MESH_TOL}
+    check(gap <= RL_MESH_TOL and metric_gap <= RL_MESH_TOL,
+          f"Learner(mesh=) off the plain learner: {out}")
+
+    cspec = EnvSpec(obs_dim=3, action_dim=1, action_low=-2.0,
+                    action_high=2.0)
+    cfg = sac.SACConfig()
+    params = sac.init_soft_actor_critic(
+        torch.Generator(device=DEV).manual_seed(0), cspec, cfg)
+    batch = {"obs": rng.standard_normal((n, 3)).astype(np.float32),
+             "actions": rng.uniform(-2, 2, (n, 1)).astype(np.float32),
+             "rewards": rng.standard_normal(n).astype(np.float32),
+             "next_obs": rng.standard_normal((n, 3)).astype(np.float32),
+             "dones": rng.random(n) < 0.2}
+    loss = sac.make_sac_loss(cspec, cfg)
+    plain = Learner(params, loss, cfg.lr, device=DEV)
+    on_mesh = Learner(params, loss, cfg.lr, mesh=mesh)
+    mp = {k: float(v) for k, v in plain.update_minibatch(batch).items()}
+    mm = {k: float(v) for k, v in on_mesh.update_minibatch(batch).items()}
+    a, b = _leaves(plain.get_params()), _leaves(on_mesh.get_params())
+    out["sac"] = {"params_max_abs_gap": max(float((a[k] - b[k]).abs().max())
+                                            for k in a),
+                  "metrics_max_abs_gap": max(abs(mp[k] - mm[k]) for k in mp),
+                  "same_generator": bool(torch.equal(
+                      plain._gen.get_state(), on_mesh._gen.get_state()))}
+    check(out["sac"]["params_max_abs_gap"] <= RL_MESH_TOL
+          and out["sac"]["metrics_max_abs_gap"] <= RL_MESH_TOL
+          and out["sac"]["same_generator"],
+          f"Learner(mesh=) SAC off the plain learner: {out['sac']}")
+    return out
+
+
 def rl_phase(torch, np, flash, smi):
     """The RL stack on the card in one process: the tuned PPO example
     through ``run_train`` until it learns, the other on-policy configs, a
     Nature-CNN PPO update against the CPU, the fused iteration against
     the host loop, the off-policy families (``rl_off_policy``), the
-    multi-agent and model-based ones (``rl_multi_agent_model_based``) and
+    multi-agent and model-based ones (``rl_multi_agent_model_based``),
     the search, population, sequence, slate, bandit and pixel ones
-    (``rl_search_population_sequence_slate``). No flash kernel may
+    (``rl_search_population_sequence_slate``) and PPO on an external env
+    through the policy server (``rl_external``). No flash kernel may
     launch."""
     from ray_tpu_torch.parallel.train_step import _leaves
     from ray_tpu_torch.rl import anakin
@@ -4642,7 +4834,9 @@ def rl_phase(torch, np, flash, smi):
     rl_multi_agent_model_based(torch, np, rltrain, flash, smi)
     # 7. pixels, bandits, ES/ARS, AlphaZero/LC0, DT and SlateQ
     rl_search_population_sequence_slate(torch, np, rltrain, flash, smi)
-    # 8. nothing on the RL path reaches flash attention
+    # 8. PPO on an external env through the policy server
+    rl_external(torch, np, smi)
+    # 9. nothing on the RL path reaches flash attention
     launches = read_launches(flash)
     emit({"phase": "rl", "part": "launches", "nvidia_smi": smi,
           "flash_launches": launches})
@@ -4686,7 +4880,9 @@ def mesh_phase(torch, np, tllama, tts, tflops, flash, smi):
     from a copy of the same params, 4 steps through
     ``StepDriver(mesh=..., steps_per_launch=4)`` from the same init, a
     sharded checkpoint of the state round-tripped bit-equal, each op of
-    the collective group API once, and the process group torn down."""
+    the collective group API once, a PPO minibatch through
+    ``Learner(mesh=...)`` against the plain ``Learner``
+    (``rl_learner_mesh``), and the process group torn down."""
     import shutil
     import tempfile
 
@@ -4828,6 +5024,9 @@ def mesh_phase(torch, np, tllama, tts, tflops, flash, smi):
               "cannot send to self",
               f"collectives on one member: {got}, self send {self_send}")
         del params, state
+        torch.cuda.empty_cache()
+        # the RL learner on the same mesh (no flash kernel)
+        out["rl_learner_mesh"] = rl_learner_mesh(torch, np, mesh)
     finally:
         col.clear_rendezvous("mesh")
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5211,9 +5410,316 @@ def seqpipe_phase(torch, np, tllama, tts, tflops, flash, smi):
     return launches
 
 
+def restore_launches(flash, counts):
+    """Set every launch counter back to ``counts`` (a ``read_launches``):
+    launches made to check a path's results stay out of its count."""
+    for name in LAUNCH_COUNTERS:
+        getattr(flash, name).launches = counts[name]
+    for kern in flash.flash_fwd.launches_by_kernel:
+        flash.flash_fwd.launches_by_kernel[kern] = counts[f"flash_fwd_{kern}"]
+
+
+# ------------------------------------------------------------ tools
+
+# rt profile's runs: (label, argv, expected records as (kind, count,
+# steps a record)); the 7b modes at JAX's defaults (batch 4, seq 128, 16
+# new tokens, 5 steps); --json and --out on the fused train run. Two
+# short runs more, outside the measured ones (the profiler slows the
+# host), take --torch-trace: train for tcb, dq and dkv, generate for tcb
+# and dec
+TOOLS_TRAIN = ["--preset", "1b", "--mode", "train", "--batch", "4",
+               "--seq", "2048"]
+TOOLS_PROFILE_RUNS = (
+    ("train_k1", TOOLS_TRAIN + ["--steps", "5"], [("train", 5, 1)]),
+    ("train_k4", TOOLS_TRAIN + ["--steps-per-launch", "4", "--steps", "8"],
+     [("train", 2, 4)]),
+    ("generate", ["--preset", "7b", "--mode", "generate"],
+     [("generate", 5, 1)]),
+    ("speculative", ["--preset", "7b", "--mode", "speculative"],
+     [("speculative", 5, 1)]),
+    ("stream", ["--preset", "7b", "--mode", "stream"],
+     [("prefill", 5, 1), ("decode", 75, 1)]),
+    ("train_traced", TOOLS_TRAIN + ["--steps", "2"], [("train", 2, 1)]),
+    ("generate_traced", ["--preset", "7b", "--mode", "generate", "--steps",
+                         "1", "--new-tokens", "4"], [("generate", 1, 1)]))
+TOOLS_TRACED = {"train_traced": ("tcb::flash_fwd_kernel",
+                                 "flash_bwd_dq_kernel",
+                                 "flash_bwd_dkv_kernel"),
+                "generate_traced": ("tcb::flash_fwd_kernel",
+                                    "dec::flash_fwd_kernel")}
+
+
+def run_tool(main, argv, env=None, **kw):
+    """``main(argv)`` in this process with its stdout captured and the
+    variables in ``env`` set for the call: (return code, the text it
+    printed)."""
+    import contextlib
+    import io
+
+    env = env or {}
+    saved = {k: os.environ.get(k) for k in env}
+    buf = io.StringIO()
+    try:
+        os.environ.update(env)
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv, **kw)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return rc, buf.getvalue()
+
+
+def profile_expected_launches(argv, n_layers, steps):
+    """The flash launches of one ``rt profile`` run: a train step is 2L
+    tcb forwards (remat) and L dq and dkv; a generate call one tcb
+    prefill a layer and a dec decode step a layer for every new token but
+    the last, a stream the same per step. Speculative rounds depend on
+    acceptance: None."""
+    mode = argv[argv.index("--mode") + 1]
+    if mode == "train":
+        return {"flash_fwd_tcb": 2 * n_layers * steps,
+                "flash_fwd_dec": 0, "flash_dq": n_layers * steps,
+                "flash_dkv": n_layers * steps}
+    if mode in ("generate", "stream"):
+        new = int(argv[argv.index("--new-tokens") + 1]
+                  if "--new-tokens" in argv else 16)
+        return {"flash_fwd_tcb": n_layers * steps,
+                "flash_fwd_dec": (new - 1) * n_layers * steps,
+                "flash_dq": 0, "flash_dkv": 0}
+    return None
+
+
+def trace_kernel_names(path):
+    """The kernel names of a ``torch.profiler`` Chrome trace."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    return {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+
+
+def tools_phase(torch, np, tllama, flash, smi):
+    """The tooling on the card, each tool's ``main`` called in process:
+    ``rt profile`` (1b train at K = 1 and K = 4, 7b generate, speculative
+    and stream, and two short traced runs), kv_bench's leg 1 and
+    stream_bench's leg 1 at 7b with JAX's defaults (the warm prefix cache
+    sized by the tool to hold the 7b prefix's 512 MiB of pages). Record kinds and counts exact, every steady record's
+    MFU in (0, 1], the artifact's keys JAX's, the device traces naming
+    the flash kernels, the timeline a step span a record; warm first
+    tokens against a cold forward (margin rule), every warm admission a
+    hit, stream counts exact; launches exact where the work fixes them.
+    The whole phase is one launch-count path, ``tools``."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.models import generate as TG
+    from ray_tpu_torch.tools import kv_bench, profile, stream_bench
+    from ray_tpu_torch.util import step_profiler
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    out = {"phase": "tools", "nvidia_smi": smi, "profile": {}}
+    zero_launches(flash)
+    t_phase = time.perf_counter()
+    try:
+        # 1. rt profile
+        for label, argv, want in TOOLS_PROFILE_RUNS:
+            extra = []
+            if label in TOOLS_TRACED:
+                extra += ["--torch-trace", f"{tmp}/trace-{label}"]
+            if label == "train_k4":
+                extra += ["--json", f"{tmp}/profile.json", "--out",
+                          f"{tmp}/timeline.json"]
+            before = read_launches(flash)
+            t0 = time.perf_counter()
+            rc, text = run_tool(profile.main, argv + extra + ["--device",
+                                                              DEV])
+            wall_s = time.perf_counter() - t0
+            launched = launch_delta_since(flash, before)
+            recs = step_profiler.records()
+            summ = step_profiler.summary()
+            steady = [line for line in text.splitlines()
+                      if line.startswith(("steady-state:",
+                                          "launch amortization:"))]
+            for line in steady:
+                print(f"rt profile {label}: {line}", flush=True)
+            kinds = [(k, sum(r.kind == k for r in recs),
+                      sorted({r.steps for r in recs if r.kind == k}))
+                     for k in dict.fromkeys(r.kind for r in recs)]
+            rec = {"argv": argv + extra, "rc": rc, "wall_s": wall_s,
+                   "kinds": kinds, "steady": steady, "summary": summ,
+                   "records": [{k: getattr(r, k) for k in (
+                       "kind", "step", "wall_s", "compile_s", "dispatch_s",
+                       "execute_s", "launches", "steps", "tokens",
+                       "tokens_per_s", "mfu", "first_call",
+                       "hbm_peak_bytes")} for r in recs],
+                   "launches": launched,
+                   "metrics": [line for line in text.splitlines()
+                               if line.startswith(("rt_step_",
+                                                   "rt_hbm_"))]}
+            out["profile"][label] = rec
+            check(rc == 0, f"rt profile {label}: rc {rc}")
+            check([(k, n, [s]) for k, n, s in want] == kinds,
+                  f"rt profile {label}: records {kinds}, want {want}")
+            bad_mfu = [r.mfu for r in recs if not r.first_call
+                       and not 0.0 < r.mfu <= 1.0]
+            check(not bad_mfu, f"rt profile {label}: steady MFU outside "
+                               f"(0, 1]: {bad_mfu}")
+            n_layers = (tllama.PRESETS["1b"] if label.startswith("train")
+                        else tllama.PRESETS["7b"]).n_layers
+            steps = sum(r.steps for r in recs if r.kind in
+                        ("train", "generate", "speculative", "prefill"))
+            want_launches = profile_expected_launches(argv, n_layers,
+                                                      steps)
+            if want_launches is not None:
+                got = {k: launched[k] for k in want_launches}
+                check(got == want_launches,
+                      f"rt profile {label}: launches {got}, want "
+                      f"{want_launches}")
+            else:   # speculative: a prefill of the target's L layers and
+                # the draft's L/2 a call, then L verify forwards and k = 4
+                # draft decode steps of L/2 a round
+                draft = max(1, n_layers // 2)
+                extra_tcb = launched["flash_fwd_tcb"] - (
+                    n_layers + draft) * steps
+                rounds = extra_tcb // n_layers
+                check(extra_tcb > 0 and extra_tcb % n_layers == 0
+                      and launched["flash_fwd_dec"] == 4 * draft * rounds,
+                      f"rt profile speculative: launches {launched}")
+                rec["rounds"] = rounds
+            if label in TOOLS_TRACED:
+                found = [p for p in Path(f"{tmp}/trace-{label}").glob(
+                    "*.json")]
+                check(len(found) == 1, f"rt profile {label}: "
+                                       f"--torch-trace wrote {found}")
+                names = trace_kernel_names(found[0])
+                missing = [k for k in TOOLS_TRACED[label]
+                           if not any(k in n for n in names)]
+                rec["trace"] = {"bytes": found[0].stat().st_size,
+                                "kernel_names": len(names),
+                                "flash": sorted(n[:90] for n in names
+                                                if "flash_" in n)}
+                check(not missing, f"rt profile {label}: the device trace "
+                                   f"names no {missing}")
+            if label == "train_k4":
+                art = json.loads(Path(f"{tmp}/profile.json").read_text())
+                check(set(art) == {"schema", "t", "config", "platform",
+                                   "records", "summary"}
+                      and art["schema"] == "rt-profile-v1"
+                      and art["platform"]["backend"] == DEV,
+                      f"rt profile artifact: keys {sorted(art)}, "
+                      f"platform {art.get('platform')}")
+                trace = json.loads(Path(f"{tmp}/timeline.json").read_text())
+                spans = sum(t["cat"] == "step" for t in trace)
+                rec["timeline_events"] = len(trace)
+                check(spans == len(recs), f"timeline: {spans} step spans "
+                                          f"for {len(recs)} records")
+        step_profiler.reset()
+
+        # 2. kv_bench leg 1 at 7b, JAX's defaults
+        seen = []
+        holder = {}
+
+        def observe(leg, prompt, first, params):
+            seen.append((leg, prompt, first))
+            holder["params"] = params
+
+        before = read_launches(flash)
+        t0 = time.perf_counter()
+        rc, text = run_tool(kv_bench.main, ["--device", DEV],
+                            env={"RT_KV_BENCH_PRESET": "7b"},
+                            observe=observe)
+        kv_wall_s = time.perf_counter() - t0
+        kv_launched = launch_delta_since(flash, before)
+        kv = json.loads(text)
+        e = kv["engine_ttft"]
+        print(f"kv_bench leg 1: cold p50 {e['cold']['ttft_p50_ms']} ms, "
+              f"warm p50 {e['warm']['ttft_p50_ms']} ms, collapse "
+              f"x{e['ttft_collapse_x']}", flush=True)
+        # outside the count: the cold reference of every timed prompt,
+        # one solo forward over the whole prompt
+        zero_before = read_launches(flash)
+        cfg = tllama.PRESETS["7b"]
+        params = holder.pop("params")
+        firsts = []
+        with torch.inference_mode():
+            for leg, prompt, first in seen:
+                toks = torch.from_numpy(prompt.astype(np.int64)).to(
+                    DEV)[None, :]
+                cache = TG.init_cache(cfg, 1, toks.shape[1], device=DEV)
+                logits = TG._forward_with_cache(params, toks, cfg, cache,
+                                                0)[0, -1]
+                top = torch.topk(logits, 2).values
+                rel = float(top[0] - top[1]) / float(logits.abs().max())
+                firsts.append({"leg": leg, "engine": int(first),
+                               "solo": int(logits.argmax()),
+                               "margin_rel": rel,
+                               "checked": rel > WARM_MARGIN_REL_TOL})
+                del cache
+        del params
+        restore_launches(flash, zero_before)
+        torch.cuda.empty_cache()
+        admissions = 2 * (kv_bench.REQUESTS + 2)
+        out["kv_bench"] = {"artifact": kv, "wall_s": kv_wall_s,
+                           "launches": kv_launched,
+                           "admissions": admissions,
+                           "first_tokens": firsts,
+                           "margin_rel_tol": WARM_MARGIN_REL_TOL}
+        check(rc == 0 and kv["schema"] == "rt-kv-bench-1",
+              f"kv_bench: rc {rc}, schema {kv.get('schema')}")
+        check(e["warm"]["kv"]["hits"] >= kv_bench.REQUESTS,
+              f"kv_bench: warm hits {e['warm']['kv']}, want >= "
+              f"{kv_bench.REQUESTS}")
+        check(len(seen) == 2 * kv_bench.REQUESTS,
+              f"kv_bench: observed {len(seen)} timed requests")
+        warm_checked = [f for f in firsts if f["leg"] == "warm"
+                        and f["checked"]]
+        check(warm_checked, f"kv_bench: no warm prompt's cold top-2 margin "
+                            f"exceeds {WARM_MARGIN_REL_TOL}")
+        bad = [f for f in firsts if f["checked"]
+               and f["engine"] != f["solo"]]
+        check(not bad, f"kv_bench: first tokens differ from the cold "
+                       f"forward above the margin: {bad}")
+        check(kv_launched["flash_fwd_tcb"] == cfg.n_layers * admissions
+              and kv_launched["flash_fwd_dec"] > 0,
+              f"kv_bench: launches {kv_launched}, want tcb "
+              f"{cfg.n_layers * admissions} (a layer an admission)")
+
+        # 3. stream_bench leg 1 at 7b, JAX's defaults
+        before = read_launches(flash)
+        t0 = time.perf_counter()
+        rc, text = run_tool(stream_bench.main, ["--device", DEV],
+                            env={"RT_STREAM_BENCH_PRESET": "7b"})
+        st_wall_s = time.perf_counter() - t0
+        st_launched = launch_delta_since(flash, before)
+        st = json.loads(text)
+        raw = st["raw_engine"]
+        print(f"stream_bench leg 1: {raw['tok_s']} tok/s, "
+              f"{raw['streams']} streams x {raw['tokens_per_stream']}",
+              flush=True)
+        out["stream_bench"] = {"artifact": st, "wall_s": st_wall_s,
+                               "launches": st_launched}
+        check(rc == 0 and st["schema"] == "rt-stream-bench-1"
+              and raw["streams"] == 64 and raw["tokens_per_stream"] == 64,
+              f"stream_bench: rc {rc}, {raw}")
+        check(st_launched["flash_fwd_tcb"] == cfg.n_layers * 3 * 64
+              and st_launched["flash_fwd_dec"] > 0,
+              f"stream_bench: launches {st_launched}, want tcb "
+              f"{cfg.n_layers * 3 * 64} (three runs of 64 admissions)")
+    finally:
+        step_profiler.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    launches = read_launches(flash)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = launches
+    emit(out)
+    return launches
+
+
 PHASES = ("kernel", "bwd", "integration", "grad", "serve", "llm", "spec",
           "moe", "train", "driver", "moe_train", "rlhf", "anakin", "rl",
-          "vit", "mesh", "seqpipe")
+          "vit", "mesh", "seqpipe", "tools")
 
 
 def kernel_entry(name, source, replaces, launches, head, part=None,
@@ -5332,6 +5838,8 @@ def main(argv=None) -> int:
     if "seqpipe" in only:
         launches["seqpipe"] = seqpipe_phase(torch, np, tllama, tts, tflops,
                                             flash, smi)
+    if "tools" in only:
+        launches["tools"] = tools_phase(torch, np, tllama, flash, smi)
     if args.only is not None:
         print(json.dumps({"partial_run": sorted(only)}), flush=True)
         return 0

@@ -16,6 +16,11 @@ lengths): the rope gather, the cache write and the attention offset are
 all per row. A write position past ``max_len - 1`` is clamped to it, as
 JAX's ``dynamic_update_slice`` clamps: only surplus steps of a request
 that already finished reach there, and their tokens are discarded.
+
+With the step profiler (``util/step_profiler.py``) enabled, ``generate``,
+``generate_speculative`` and ``generate_stream`` write JAX's records
+(kinds, tokens, analytic FLOPs, meta); disabled, they pay one predicate
+check a call.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ from ray_tpu_torch._device import DeviceLike, check_params_on, resolve_device
 from ray_tpu_torch.models import llama, moe
 from ray_tpu_torch.ops.norms import rmsnorm
 from ray_tpu_torch.ops.rope import apply_rope, rope_angles
+from ray_tpu_torch.util import flops as FL
+from ray_tpu_torch.util import step_profiler
 
 Cache = Dict[str, torch.Tensor]
 
@@ -113,6 +120,60 @@ def _sample_token(last_logits: torch.Tensor, temperature: float,
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+def _last_logits(params, tokens, cfg, cache: Cache, pos) -> torch.Tensor:
+    """The fp32 logits [B, V] of the last position of ``tokens`` at
+    ``pos``; the cache is written in place."""
+    return _forward_with_cache(params, tokens, cfg, cache, pos)[:, -1]
+
+
+def _setup(params, prompt, max_new_tokens: int, max_len: Optional[int],
+           temperature: float, generator: Optional[torch.Generator],
+           device: DeviceLike):
+    """(prompt on the device, cache length, generator) of a decode call,
+    checked as JAX checks them."""
+    device = resolve_device(device)
+    check_params_on(params, device)
+    prompt = torch.as_tensor(prompt, dtype=torch.long).to(device)
+    s = prompt.shape[1]
+    total = max_len or (s + max_new_tokens)
+    if total < s + max_new_tokens:
+        raise ValueError(f"max_len {total} < prompt {s} + new {max_new_tokens}")
+    if temperature > 0 and generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return prompt, total, generator
+
+
+def _token_stream(params, prompt: torch.Tensor, cfg, max_new_tokens: int,
+                  temperature: float, top_k: Optional[int],
+                  generator: Optional[torch.Generator], total: int,
+                  profiled: bool) -> Iterator[torch.Tensor]:
+    """The decode loop: a prefill, then one forward a token. With
+    ``profiled`` the prefill and each decode step are one step-profiler
+    record each, under JAX's kinds ``"prefill"`` and ``"decode"``."""
+    b, s = prompt.shape
+    cache = init_cache(cfg, b, total, device=prompt.device)
+
+    def step(kind, args, key, tokens, flops, meta=None) -> torch.Tensor:
+        # per-launch records: the streamed path pays launch overhead PER
+        # TOKEN, which the profiler's dispatch/sync split exposes
+        if not profiled:
+            return _last_logits(*args)
+        return step_profiler.profiled_call(kind, _last_logits, args,
+                                           key=key, tokens=tokens,
+                                           flops=flops, meta=meta)
+
+    last = step("prefill", (params, prompt, cfg, cache, 0),
+                ("prefill", cfg, b, s, total), b * s,
+                FL.prefill_flops(cfg, b, s), {"batch": b})
+    for i in range(max_new_tokens):
+        tok = _sample_token(last, temperature, top_k, generator)
+        yield tok
+        if i + 1 < max_new_tokens:
+            last = step("decode", (params, tok[:, None], cfg, cache, s + i),
+                        ("decode", cfg, b, total), b,
+                        b * FL.decode_flops_per_token(cfg, s + i))
+
+
 def generate_stream(params, prompt, cfg, *, max_new_tokens: int,
                     temperature: float = 0.0, top_k: Optional[int] = None,
                     generator: Optional[torch.Generator] = None,
@@ -121,24 +182,15 @@ def generate_stream(params, prompt, cfg, *, max_new_tokens: int,
     """Yield tokens [B] one at a time — the serve token-streaming path.
 
     ``prompt`` is [B, S] int (array or tensor). Sampling draws from
-    ``generator`` (a fresh one seeded 0 on ``device`` when omitted)."""
-    device = resolve_device(device)
-    check_params_on(params, device)
-    prompt = torch.as_tensor(prompt, dtype=torch.long).to(device)
-    b, s = prompt.shape
-    total = max_len or (s + max_new_tokens)
-    if total < s + max_new_tokens:
-        raise ValueError(f"max_len {total} < prompt {s} + new {max_new_tokens}")
-    if temperature > 0 and generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-    cache = init_cache(cfg, b, total, device=device)
-    last = _forward_with_cache(params, prompt, cfg, cache, 0)[:, -1]
-    for i in range(max_new_tokens):
-        tok = _sample_token(last, temperature, top_k, generator)
-        yield tok
-        if i + 1 < max_new_tokens:
-            last = _forward_with_cache(params, tok[:, None], cfg, cache,
-                                       s + i)[:, -1]
+    ``generator`` (a fresh one seeded 0 on ``device`` when omitted). With
+    the step profiler enabled, the prefill and every decode step are a
+    record each (``"prefill"``, then ``"decode"``), as in JAX."""
+    prompt, total, generator = _setup(params, prompt, max_new_tokens,
+                                      max_len, temperature, generator,
+                                      device)
+    yield from _token_stream(params, prompt, cfg, max_new_tokens,
+                             temperature, top_k, generator, total,
+                             step_profiler.is_enabled())
 
 
 def generate(params, prompt, cfg, *, max_new_tokens: int,
@@ -149,19 +201,33 @@ def generate(params, prompt, cfg, *, max_new_tokens: int,
     """prompt [B, S] -> generated tokens [B, max_new_tokens] (int64).
 
     ``temperature == 0``: greedy. Otherwise softmax sampling (optionally
-    top-k truncated) from ``generator``."""
-    toks = list(generate_stream(
-        params, prompt, cfg, max_new_tokens=max_new_tokens,
-        temperature=temperature, top_k=top_k, generator=generator,
-        max_len=max_len, device=device))
-    if not toks:
-        b = len(prompt)
-        return torch.zeros((b, 0), dtype=torch.long,
-                           device=resolve_device(device))
-    return torch.stack(toks, dim=1)
+    top-k truncated) from ``generator``. With the step profiler enabled
+    the whole call is one ``"generate"`` record, as in JAX."""
+    prompt, total, generator = _setup(params, prompt, max_new_tokens,
+                                      max_len, temperature, generator,
+                                      device)
+    b, s = prompt.shape
+
+    def run() -> torch.Tensor:
+        toks = list(_token_stream(params, prompt, cfg, max_new_tokens,
+                                  temperature, top_k, generator, total,
+                                  False))
+        if not toks:
+            return torch.zeros((b, 0), dtype=torch.long,
+                               device=prompt.device)
+        return torch.stack(toks, dim=1)
+
+    if not step_profiler.is_enabled():
+        return run()
+    return step_profiler.profiled_call(
+        "generate", run,
+        key=("generate", cfg, b, s, total, max_new_tokens,
+             float(temperature), top_k),
+        tokens=b * max_new_tokens,
+        flops=FL.generate_flops(cfg, b, s, max_new_tokens),
+        meta={"batch": b, "prompt_len": s})
 
 
-@torch.inference_mode()
 def generate_speculative(params, draft_params, prompt, cfg, draft_cfg, *,
                          max_new_tokens: int, speculate_k: int = 4,
                          max_len: Optional[int] = None,
@@ -191,7 +257,10 @@ def generate_speculative(params, draft_params, prompt, cfg, draft_cfg, *,
     while a block fits.
 
     ``return_stats=True`` also returns ``{"rounds", "accept_per_round"}``
-    (tokens emitted per target verify, less the correction token)."""
+    (tokens emitted per target verify, less the correction token). With
+    the step profiler enabled the whole call is one ``"speculative"``
+    record, its FLOPs the target's and the draft's generations, as in
+    JAX."""
     device = resolve_device(device)
     check_params_on(params, device)
     check_params_on(draft_params, device)
@@ -202,6 +271,35 @@ def generate_speculative(params, draft_params, prompt, cfg, draft_cfg, *,
     if total < s + max_new_tokens + k + 1:
         raise ValueError(f"max_len {total} < prompt {s} + new "
                          f"{max_new_tokens} + k {k} + 1")
+    args = (params, draft_params, prompt, cfg, draft_cfg, max_new_tokens,
+            k, total)
+    if not step_profiler.is_enabled():
+        out, rounds = _speculative(*args)
+    else:
+        # analytic work: the target's prefill and decode plus the draft's
+        # proposals (about one draft forward per emitted token too)
+        out, rounds = step_profiler.profiled_call(
+            "speculative", _speculative, args,
+            key=("speculative", cfg, draft_cfg, b, s, total,
+                 max_new_tokens, k),
+            tokens=b * max_new_tokens,
+            flops=(FL.generate_flops(cfg, b, s, max_new_tokens)
+                   + FL.generate_flops(draft_cfg, b, s, max_new_tokens)),
+            meta={"batch": b, "prompt_len": s, "speculate_k": k})
+    if not return_stats:
+        return out
+    return out, {"rounds": rounds,
+                 "accept_per_round": round(
+                     max(0.0, max_new_tokens / max(1, rounds) - 1.0), 3)}
+
+
+@torch.inference_mode()
+def _speculative(params, draft_params, prompt: torch.Tensor, cfg, draft_cfg,
+                 max_new_tokens: int, k: int, total: int):
+    """The speculative loop of ``generate_speculative``: (tokens [B,
+    max_new_tokens], rounds)."""
+    device = prompt.device
+    b, s = prompt.shape
     # invariant from here on: both caches hold KV for positions < pos, and
     # cur is the (already decided) token AT pos
     tcache = init_cache(cfg, b, total, device=device)
@@ -236,9 +334,4 @@ def generate_speculative(params, draft_params, prompt, cfg, draft_cfg, *,
         out[:, n + 1:n + k + 2] = emit
         cur = emit[:, a]
         n, pos, rounds = n + a + 1, pos + a + 1, rounds + 1
-    out = out[:, :max_new_tokens]
-    if not return_stats:
-        return out
-    return out, {"rounds": rounds,
-                 "accept_per_round": round(
-                     max(0.0, max_new_tokens / max(1, rounds) - 1.0), 3)}
+    return out[:, :max_new_tokens], rounds

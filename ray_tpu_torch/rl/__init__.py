@@ -8,8 +8,9 @@ model-based (MBMPO, DreamerV3), population-based (ES, ARS), search
 (AlphaZero, LeelaChessZero), sequence (the Decision Transformer), slate
 (SlateQ) and bandit (LinUCB, LinTS) algorithms, the pixel envs
 (``CatchPixels``, ``PixelWrapper``, ``FrameStack``), the fused PPO
-iteration and RLHF. One process, one device: JAX's actor layer
-(``LearnerGroup``, the policy server) is not ported."""
+iteration, RLHF and the external-env policy server (HTTP, in process).
+One process, one device: JAX's actor layer (``LearnerGroup``) is not
+ported."""
 
 from ray_tpu_torch.rl.algorithm import Algorithm  # noqa: F401
 from ray_tpu_torch.rl.algorithms import (  # noqa: F401
@@ -102,6 +103,10 @@ from ray_tpu_torch.rl import ope  # noqa: F401
 from ray_tpu_torch.rl.learner import Learner, LearnerGroup  # noqa: F401
 # registers CatchPixels-v0
 from ray_tpu_torch.rl import pixel_env  # noqa: F401
+from ray_tpu_torch.rl.policy_server import (  # noqa: F401
+    ExternalEnvRunner,
+    PolicyClient,
+)
 from ray_tpu_torch.rl.pixel_env import (  # noqa: F401
     CatchPixels,
     FrameStack,

@@ -13,8 +13,9 @@ whose call raises loses that call's result for the iteration and is
 rebuilt from its constructor arguments, as an actor restart would, while
 it has restarts left (``max_env_runner_restarts`` when
 ``restart_failed_env_runners``); the call raises only when every runner
-failed. External envs (``external://``, JAX's policy server) need the
-cluster runtime (ROADMAP item R) and are refused.
+failed. External envs (``env="external://<port>"``) run
+``rl/policy_server.py``'s HTTP servers in this process as the runners;
+``stop()`` shuts them down.
 """
 
 from __future__ import annotations
@@ -31,9 +32,10 @@ from ray_tpu_torch.models.convert import params_to_numpy
 from ray_tpu_torch.rl import models
 from ray_tpu_torch.rl.config import AlgorithmConfig
 from ray_tpu_torch.rl.connectors import build_connectors
-from ray_tpu_torch.rl.env import make_env
+from ray_tpu_torch.rl.env import EnvSpec, make_env
 from ray_tpu_torch.rl.env_runner import EnvRunner
 from ray_tpu_torch.rl.learner import Learner, LearnerGroup
+from ray_tpu_torch.rl.policy_server import ExternalEnvRunner
 from ray_tpu_torch.rl.rl_module import Catalog
 from ray_tpu_torch.tune.trainable import Trainable
 
@@ -74,26 +76,53 @@ class Algorithm(DeviceTrainable):
     def setup(self, config: Dict[str, Any]) -> None:
         self.config: AlgorithmConfig = self.config_from(config)
         cfg = self.config
-        if cfg.env.startswith("external://"):
-            raise NotImplementedError(
-                "external envs (the policy server, ExternalEnvRunner) need "
-                "the cluster runtime, which the port does not have "
-                "(ROADMAP item R)")
-        # probe the env spec
-        self.spec = make_env(cfg.env, 1, cfg.env_config).spec
         n_runners = max(1, cfg.num_env_runners) \
             if self.need_env_runners else 0
-        restarts = (cfg.max_env_runner_restarts
-                    if cfg.restart_failed_env_runners else 0)
-        self._runner_args = [
-            dict(env_name=cfg.env, num_envs=cfg.num_envs_per_runner,
-                 rollout_len=cfg.rollout_fragment_length, gamma=cfg.gamma,
-                 lam=cfg.lambda_, seed=cfg.seed + 1000 * i,
-                 env_config=cfg.env_config, explore=self.explore_mode,
-                 connectors=cfg.connectors, device=self.device)
-            for i in range(n_runners)]
-        self._restarts_left = [restarts] * n_runners
-        self.runners = [EnvRunner(**kw) for kw in self._runner_args]
+        if cfg.env.startswith("external://"):
+            # external-env serving (rl/policy_server.py): each runner is
+            # an HTTP policy server; the spec must be declared up front
+            # since no env exists to probe (reference: policy_server_input
+            # needs the space config too)
+            spec_kwargs = cfg.env_config.get("spec")
+            if not spec_kwargs:
+                raise ValueError(
+                    'external envs need env_config={"spec": {...EnvSpec '
+                    'fields...}}')
+            if cfg.connectors:
+                raise ValueError(
+                    "connectors are not applied by external-env runners "
+                    "(the external simulator owns preprocessing); drop "
+                    "config.connectors or filter client-side")
+            self.spec = EnvSpec(**spec_kwargs)
+            port = int(cfg.env.split("://", 1)[1] or 0)
+            self._runner_args = [
+                dict(port=port + i if port else 0, spec=dict(spec_kwargs),
+                     rollout_len=cfg.rollout_fragment_length,
+                     num_slots=cfg.num_envs_per_runner, gamma=cfg.gamma,
+                     lam=cfg.lambda_, seed=cfg.seed + 1000 * i,
+                     device=self.device)
+                for i in range(n_runners)]
+            # JAX's external runners are actors without restarts
+            self._restarts_left = [0] * n_runners
+            self.runners = [ExternalEnvRunner(**kw)
+                            for kw in self._runner_args]
+            # bind now so callers can fetch ports before training starts
+            self.server_ports = [r.ready() for r in self.runners]
+        else:
+            # probe the env spec
+            self.spec = make_env(cfg.env, 1, cfg.env_config).spec
+            restarts = (cfg.max_env_runner_restarts
+                        if cfg.restart_failed_env_runners else 0)
+            self._runner_args = [
+                dict(env_name=cfg.env, num_envs=cfg.num_envs_per_runner,
+                     rollout_len=cfg.rollout_fragment_length,
+                     gamma=cfg.gamma, lam=cfg.lambda_,
+                     seed=cfg.seed + 1000 * i, env_config=cfg.env_config,
+                     explore=self.explore_mode, connectors=cfg.connectors,
+                     device=self.device)
+                for i in range(n_runners)]
+            self._restarts_left = [restarts] * n_runners
+            self.runners = [EnvRunner(**kw) for kw in self._runner_args]
         # the algorithm's own pipeline skeleton: holds/merges the global
         # connector state the runners sync through (reference: filter
         # deltas flushed to the algorithm and re-broadcast each iteration)
@@ -288,7 +317,11 @@ class Algorithm(DeviceTrainable):
                 "episode_return_mean": mean_ret}
 
     def stop(self) -> None:
-        """Release the runners (JAX kills their actors)."""
+        """Release the runners (JAX kills their actors); an external
+        runner's HTTP server shuts down."""
+        for r in self.runners:
+            if isinstance(r, ExternalEnvRunner):
+                r.shutdown()
         self.runners = []
 
 

@@ -7,12 +7,25 @@ integer step count, the norm reported before clipping), not as optax's or
 as ``parallel/train_step.py``'s ``Adam``. An ``update`` moves its batch to
 the device once and indexes the minibatches there.
 
-JAX's multi-device learner (``Learner(mesh=...)``) jits one loss over the
-global batch; PPO, A2C and APPO normalise advantages over that whole batch,
-which a per-rank loss with an all-reduce of gradients would change, so the
-mesh path needs a design of its own (ROADMAP item 11c) and is refused
-here. ``LearnerGroup`` (learner actors syncing gradients through the
-cluster's collectives) needs the cluster runtime (ROADMAP item R).
+``Learner(mesh=...)`` is JAX's multi-device update: JAX jits one loss
+over the global minibatch sharded on the mesh's ``dp`` axis with params
+replicated, so every reduction inside the loss (PPO's, A2C's and APPO's
+advantage normalisation, the losses' means) runs over the whole
+minibatch. The port gives the same update with DTensors: each minibatch
+(the same global rows on every rank, as JAX's ``device_put`` takes them)
+becomes a ``Shard(0)`` DTensor on ``dp`` and the params ``Replicate()``
+DTensors (``parallel/sharding.py``'s placements), so DTensor's
+propagation turns each reduction over rows into a global one and the
+gradients come back as partial sums, which are all-reduced into the
+global minibatch's gradient. Clipping and Adam then run on every rank on
+the same replicated values, so params, moments and the generator stay
+rank-identical. A per-rank loss followed by a gradient all-reduce would
+normalise each shard by its own moments instead. A loss that draws noise
+from the learner's generator (SAC, CQL, CRR, TD3) draws it through
+``models.noise_on_mesh``: each draw is the global noise as a replicated
+DTensor, the same on every rank, as JAX's replicated key draws it.
+``LearnerGroup`` (learner actors syncing gradients through the cluster's
+collectives) needs the cluster runtime (ROADMAP item R).
 """
 
 from __future__ import annotations
@@ -72,17 +85,29 @@ class Learner:
 
     ``loss_fn(params, batch, key) -> (loss, metrics_dict)`` is supplied by
     the algorithm; ``key`` is the learner's ``torch.Generator`` (seeded
-    with ``seed``), which the on-policy losses do not use."""
+    with ``seed``), which the on-policy losses do not use.
+
+    With ``mesh`` (a ``parallel/mesh.py`` mesh; every rank of it builds
+    the learner with the same arguments and passes the same batches) each
+    minibatch is sharded over the mesh's ``dp`` axis and the update is
+    the global minibatch's (module docstring); the device is the mesh's,
+    so ``device`` may not be given too."""
 
     def __init__(self, init_params, loss_fn: Callable, lr: float,
                  grad_clip: float = 0.0, mesh=None, seed: int = 0,
                  grad_sync: Optional[Callable] = None,
                  device: DeviceLike = None):
+        self._mesh = None
         if mesh is not None:
-            raise NotImplementedError(
-                "Learner(mesh=...) is not ported (ROADMAP item 11c): JAX "
-                "jits one loss over the global batch, and the losses "
-                "normalise advantages over all of it")
+            if device is not None:
+                raise ValueError("pass a mesh or a device, not both: a "
+                                 "mesh decides its own device")
+            from ray_tpu_torch.parallel import sharding
+
+            self._mesh = sharding.compute_mesh(mesh)
+            self._batch_places = sharding.named_sharding(mesh, "dp")
+            self._replicated = sharding.named_sharding(mesh)
+            device = sharding._mesh_device(self._mesh)
         self.device = resolve_device(device)
         self.params = models.params_to_device(init_params, self.device)
         self.opt_state = adam_init(self.params)
@@ -106,9 +131,12 @@ class Learner:
         metrics are 0-d tensors on the device (``grad_norm`` where the
         learner clips, and ``loss``)."""
         batch = self._to_device(batch)
-        (loss, metrics), flat = value_and_grad(
-            lambda p: self._loss_fn(p, batch, self._gen), self.params,
-            has_aux=True)
+        if self._mesh is None:
+            (loss, metrics), flat = value_and_grad(
+                lambda p: self._loss_fn(p, batch, self._gen), self.params,
+                has_aux=True)
+        else:
+            loss, metrics, flat = self._mesh_loss_and_grads(batch)
         grads = _unflatten_like(self.params, flat)
         if self._grad_sync is not None:
             grads = self._grad_sync(grads)
@@ -118,6 +146,31 @@ class Learner:
         self.params, self.opt_state = adam_update(
             self.params, grads, self.opt_state, self._lr)
         return dict(metrics, loss=loss)
+
+    def _mesh_loss_and_grads(self, batch: Dict[str, torch.Tensor]):
+        """(loss, metrics, grads by leaf name) of the global minibatch
+        ``batch``: its rows sharded over ``dp`` as DTensors, the params
+        replicated, each result's global value as a plain tensor (the
+        gradients' partial sums all-reduced)."""
+        from torch.distributed.tensor import DTensor
+
+        from ray_tpu_torch.parallel import sharding
+
+        dbatch = {k: sharding.distribute(v, self._mesh, self._batch_places)
+                  for k, v in batch.items()}
+        dparams = models.tree_map(
+            lambda t: DTensor.from_local(t, self._mesh, self._replicated,
+                                         run_check=False), self.params)
+        with models.noise_on_mesh(self._mesh):
+            (loss, metrics), flat = value_and_grad(
+                lambda p: self._loss_fn(p, dbatch, self._gen), dparams,
+                has_aux=True)
+
+        def full(t):
+            return t.full_tensor() if isinstance(t, DTensor) else t
+
+        return (full(loss), {k: full(v) for k, v in metrics.items()},
+                {k: full(g) for k, g in flat.items()})
 
     def update(self, batch: Dict, *, num_epochs: int = 1,
                minibatch_size: Optional[int] = None,

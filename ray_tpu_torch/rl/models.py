@@ -17,7 +17,9 @@ a ``torch.Generator``; the draws are not JAX's.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -238,6 +240,35 @@ def value(params: Dict, obs: torch.Tensor) -> torch.Tensor:
 
 # ---- distributions ----
 
+# the device mesh of the learner update running on this thread, if any
+# (``noise_on_mesh``)
+_noise_mesh = threading.local()
+
+
+@contextlib.contextmanager
+def noise_on_mesh(mesh):
+    """Within this block, on this thread, every draw of ``gumbel``,
+    ``normal`` and ``uniform`` is a ``Replicate()`` DTensor on ``mesh``:
+    the generator is rank-identical, so each rank draws the same global
+    noise, which DTensor then combines with a sharded batch as JAX's
+    jitted update combines its replicated key's draws."""
+    before = getattr(_noise_mesh, "mesh", None)
+    _noise_mesh.mesh = mesh
+    try:
+        yield
+    finally:
+        _noise_mesh.mesh = before
+
+
+def _drawn(t: torch.Tensor) -> torch.Tensor:
+    mesh = getattr(_noise_mesh, "mesh", None)
+    if mesh is None:
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
 
 def gumbel(gen: torch.Generator, shape,
            dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -247,7 +278,7 @@ def gumbel(gen: torch.Generator, shape,
     tiny = torch.finfo(dtype).tiny
     u = torch.rand(tuple(shape), generator=gen, dtype=dtype,
                    device=gen.device).clamp_(min=tiny)
-    return -torch.log(-torch.log(u))
+    return _drawn(-torch.log(-torch.log(u)))
 
 
 def categorical_sample(gen: torch.Generator,
@@ -297,8 +328,8 @@ def gaussian_entropy(log_std: torch.Tensor) -> torch.Tensor:
 
 def normal(gen: torch.Generator, shape) -> torch.Tensor:
     """Standard normal draws of ``shape`` on ``gen``'s device."""
-    return torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                       device=gen.device)
+    return _drawn(torch.randn(tuple(shape), generator=gen,
+                              dtype=torch.float32, device=gen.device))
 
 
 def uniform(gen: torch.Generator, shape, low: float,
@@ -306,7 +337,7 @@ def uniform(gen: torch.Generator, shape, low: float,
     """Uniform draws in [low, high) of ``shape`` on ``gen``'s device."""
     u = torch.rand(tuple(shape), generator=gen, dtype=torch.float32,
                    device=gen.device)
-    return low + (high - low) * u
+    return _drawn(low + (high - low) * u)
 
 
 def num_params(params) -> int:

@@ -1,13 +1,17 @@
-"""Analytic FLOPs of a train step and model-FLOPs utilization on one H100.
+"""Analytic FLOPs of a train step or a generation and model-FLOPs
+utilization on one H100.
 
-The port's own copy of ``ray_tpu/util/flops.py``'s training formulas (the
+The port's own copy of ``ray_tpu/util/flops.py``'s formulas (the
 standard estimates: a matmul touching N parameters costs 2N FLOPs a token
 forward and 4N backward, so a train step is 6N a token plus the attention
-term 6 * L * S * hq * hd; a MoE config counts its ACTIVE parameters, the
-top-k experts a token runs through, not all of them; a ViT step counts
-every patch token and the non-causal attention term). The peak is the
-H100 SXM's dense bf16 tensor rate from NVIDIA's data sheet, at the full
-700 W power limit."""
+term 6 * L * S * hq * hd; a decoded token 2N plus attention over its live
+context, 4 * L * hq * hd * ctx, with no causal halving; a prefill 2N a
+token plus 2 * L * S * hq * hd; a MoE config counts its ACTIVE
+parameters, the top-k experts a token runs through, not all of them; a
+ViT step counts every patch token and the non-causal attention term).
+JAX's ``peak_flops_per_chip`` reads a table of TPU peaks; the port has
+one peak, the H100 SXM's dense bf16 tensor rate from NVIDIA's data sheet,
+at the full 700 W power limit."""
 
 from __future__ import annotations
 
@@ -32,6 +36,27 @@ def train_flops_per_token(cfg, seq: int) -> float:
 def train_step_flops(cfg, batch: int, seq: int) -> float:
     """One optimizer step over a [batch, seq] token block."""
     return batch * seq * train_flops_per_token(cfg, seq)
+
+
+def decode_flops_per_token(cfg, context: int) -> float:
+    """One-token forward with a KV cache holding ``context`` positions."""
+    attn = 4 * cfg.n_layers * cfg.n_heads * cfg.head_dim * context
+    return 2.0 * _flops_params(cfg) + attn
+
+
+def prefill_flops(cfg, batch: int, seq: int) -> float:
+    """Batched prompt forward (causal attention over the prompt)."""
+    attn = 2 * cfg.n_layers * seq * cfg.n_heads * cfg.head_dim
+    return batch * seq * (2.0 * _flops_params(cfg) + attn)
+
+
+def generate_flops(cfg, batch: int, prompt_len: int,
+                   new_tokens: int) -> float:
+    """Prefill + autoregressive decode of ``new_tokens`` tokens. The decode
+    attention term uses the mean live context (prompt + T/2)."""
+    ctx = prompt_len + new_tokens / 2.0
+    return (prefill_flops(cfg, batch, prompt_len)
+            + batch * new_tokens * decode_flops_per_token(cfg, ctx))
 
 
 def vit_step_flops(cfg, batch: int) -> float:

@@ -1,14 +1,15 @@
 """Device memory of this process's CUDA devices (the step profiler's peak
-memory column).
+memory column, and the ``rt_hbm_used_bytes`` gauges).
 
 The JAX package's ``util/memory.py`` walks the cluster's nodes and reads
 each JAX device's ``memory_stats()``; the port reads the caching
-allocator of each local CUDA device and nothing else.
+allocator of each local CUDA device and nothing else. The cluster-wide
+``memory_summary`` waits for the cluster runtime (ROADMAP item R).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -26,3 +27,28 @@ def device_memory_stats() -> List[Dict[str, Any]]:
              "peak_bytes_in_use": torch.cuda.max_memory_allocated(i),
              "bytes_limit": torch.cuda.get_device_properties(i).total_memory}
             for i in range(torch.cuda.device_count())]
+
+
+#: JAX's gauge: live device bytes by device
+HBM_GAUGE = "rt_hbm_used_bytes"
+
+
+def publish_hbm_gauges(sink: Callable[[str, str, float, Dict[str, str]],
+                                      None],
+                       stats: Optional[List[Dict[str, Any]]] = None
+                       ) -> None:
+    """Hand ``rt_hbm_used_bytes{device=}`` of each device in ``stats``
+    (default ``device_memory_stats()``) to ``sink(series, "set", value,
+    tags)``, a ``Sinks.metric``. JAX sets the same gauge in its metrics
+    registry, tagged ``<platform>:<id>``; here the tag is ``cuda:<index>``.
+    Observability never fails the caller: a sink that raises ends the
+    pass quietly, as JAX's does."""
+    try:
+        stats = device_memory_stats() if stats is None else stats
+        for d in stats:
+            if d.get("bytes_in_use") is None:
+                continue
+            sink(HBM_GAUGE, "set", float(d["bytes_in_use"]),
+                 {"device": f"cuda:{d['device']}"})
+    except Exception:  # noqa: BLE001 — observability never fails the caller
+        pass

@@ -403,6 +403,98 @@ def llama_pipeline(rank, world, args):
     return out
 
 
+NOISE_SPEC = dict(obs_dim=3, action_dim=1, action_low=-2.0, action_high=2.0)
+
+
+def noise_losses():
+    """{name: (params, loss_fn)} of the four losses that draw noise in the
+    batch's shape from the learner's generator (SAC, CQL, CRR, TD3), at
+    hidden (16, 16) on ``NOISE_SPEC``, each from a generator seeded 0."""
+    from ray_tpu_torch.rl import models
+    from ray_tpu_torch.rl.algorithms import cql, crr, ddpg, sac
+    from ray_tpu_torch.rl.env import EnvSpec
+
+    spec = EnvSpec(**NOISE_SPEC)
+    out = {}
+    for name, mod, config in (("SAC", sac, sac.SACConfig),
+                              ("CQL", cql, cql.CQLConfig),
+                              ("CRR", crr, crr.CRRConfig)):
+        cfg = config()
+        cfg.hidden = (16, 16)
+        params = sac.init_soft_actor_critic(
+            torch.Generator().manual_seed(0), spec, cfg,
+            log_alpha=name != "CRR")
+        out[name] = (params, getattr(mod, f"make_{name.lower()}_loss")(
+            spec, cfg))
+    cfg = ddpg.TD3Config()
+    cfg.hidden = (16, 16)
+    gen = torch.Generator().manual_seed(0)
+    params = {"pi": models.init_mlp(gen, [3, 16, 16, 1], out_scale=0.01),
+              "q1": ddpg.init_critic(gen, spec, cfg.hidden),
+              "q2": ddpg.init_critic(gen, spec, cfg.hidden)}
+    for name in ("pi", "q1", "q2"):
+        params[f"{name}_target"] = models.clone_tree(params[name])
+    out["TD3"] = (params, ddpg.make_ddpg_loss(spec, cfg, True))
+    return out
+
+
+def noise_batch(name, rows=32):
+    """``rows`` Pendulum-shaped transitions from seed 0 (TD3's with its
+    ``do_actor`` gate on)."""
+    rng = np.random.default_rng(0)
+    batch = {"obs": rng.standard_normal((rows, 3)).astype(np.float32),
+             "actions": rng.uniform(-2, 2, (rows, 1)).astype(np.float32),
+             "rewards": rng.standard_normal(rows).astype(np.float32),
+             "next_obs": rng.standard_normal((rows, 3)).astype(np.float32),
+             "dones": rng.random(rows) < 0.2}
+    if name == "TD3":
+        batch["do_actor"] = np.ones(1, np.float32)
+    return batch
+
+
+def rl_learner(rank, world, args):
+    """A PPO ``Learner(mesh=...)`` on ``args["mesh"]`` from the params in
+    ``args["params"]``: the gradients of the whole batch in
+    ``args["batch"]`` (every rank the same global rows), then ``update``
+    over it; returns the gradients, the params, the update's metrics and
+    a digest of the learner's generator state. Then, under ``"noise"``,
+    the gradients and metrics of each of ``noise_losses`` on its
+    ``noise_batch`` through ``Learner(mesh=...)`` seeded 0, and a digest
+    of its generator state after."""
+    from ray_tpu_torch.rl.algorithms.ppo import make_ppo_loss
+    from ray_tpu_torch.rl.env import EnvSpec
+    from ray_tpu_torch.rl.learner import Learner
+
+    spec = EnvSpec(**args["spec"])
+    with np.load(args["batch"]) as z:
+        batch = {k: z[k] for k in z.files}
+    learner = Learner(torch.load(args["params"]),
+                      make_ppo_loss(spec, *args["ppo"]), args["lr"],
+                      grad_clip=args["grad_clip"], mesh=_mesh(args),
+                      seed=args["seed"])
+    _, _, grads = learner._mesh_loss_and_grads(learner._to_device(batch))
+    metrics = learner.update(batch, num_epochs=1,
+                             minibatch_size=args["minibatch_size"],
+                             seed=args["seed"])
+    params = {k: v.numpy().copy()
+              for k, v in tts._leaves(learner.get_params()).items()}
+    state = learner._gen.get_state()
+    draw = float(torch.rand(1, generator=learner._gen))
+    noise = {}
+    for name, (p, loss) in noise_losses().items():
+        nl = Learner(p, loss, args["lr"], mesh=_mesh(args), seed=0)
+        nloss, nmetrics, ngrads = nl._mesh_loss_and_grads(
+            nl._to_device(noise_batch(name)))
+        noise[name] = {
+            "grads": {k: g.numpy().copy() for k, g in ngrads.items()},
+            "metrics": {k: v.numpy().copy()
+                        for k, v in dict(nmetrics, loss=nloss).items()},
+            "gen": int(nl._gen.get_state().sum())}
+    return {"grads": {k: g.numpy().copy() for k, g in grads.items()},
+            "params": params, "metrics": metrics,
+            "gen": (int(state.sum()), draw), "noise": noise}
+
+
 CASES = {"train": train, "checkpoint": checkpoint, "collective": collective,
          "sp_attention": sp_attention, "pipeline_tanh": pipeline_tanh,
-         "llama_pipeline": llama_pipeline}
+         "llama_pipeline": llama_pipeline, "rl_learner": rl_learner}

@@ -30,7 +30,9 @@ from ray_tpu_torch.train.checkpoint import Checkpoint
 from ray_tpu_torch.train.driver import StepDriver
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
+# the policy server and its client are written on the standard library:
+# the port depends on neither aiohttp nor requests
+FORBIDDEN = ("jax", "jaxlib", "ray_tpu", "aiohttp", "requests")
 
 
 def _imported_modules(path):
@@ -118,7 +120,12 @@ def test_port_imports_no_jax_and_no_ray_tpu():
             "ray_tpu_torch/parallel/pipeline.py",
             "ray_tpu_torch/collective/__init__.py",
             "ray_tpu_torch/collective/collective.py",
-            "ray_tpu_torch/collective/rendezvous.py", "chip_smoke.py"} <= names
+            "ray_tpu_torch/collective/rendezvous.py",
+            "ray_tpu_torch/rl/policy_server.py",
+            "ray_tpu_torch/util/timeline.py",
+            "ray_tpu_torch/tools/profile.py",
+            "ray_tpu_torch/tools/kv_bench.py",
+            "ray_tpu_torch/tools/stream_bench.py", "chip_smoke.py"} <= names
     bad = [(f.relative_to(ROOT), mod) for f in files
            for mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -219,6 +226,14 @@ def test_entry_points_default_to_cuda():
                                generator=torch.Generator())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bootstrap_torch_distributed(1, 0, init_method="file:///unused")
+    # the tools (rt profile, the engine benches) and the policy server
+    from ray_tpu_torch.tools import kv_bench, profile, stream_bench
+
+    for tool in (profile, kv_bench, stream_bench):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tool.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trl.ExternalEnvRunner(0, {"obs_dim": 4, "num_actions": 2}, 8)
     # and asking for the CPU with params elsewhere is refused, not moved
     with pytest.raises(ValueError, match="params are on"):
         ContinuousBatcher(params, cfg, device="meta")

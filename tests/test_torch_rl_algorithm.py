@@ -323,9 +323,12 @@ def test_refusals_name_the_roadmap():
         trl.PPOConfig(num_learners=2, hidden=HIDDEN).build(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item R"):
         trl.A2CConfig(num_learners=1).build(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item R"):
+    # external envs and the mesh learner are ported: what stays refused
+    # is an external env without its spec (JAX's ValueError) and a mesh
+    # beside a device
+    with pytest.raises(ValueError, match="external envs need env_config"):
         trl.PPOConfig(env="external://0").build(device="cpu")
-    with pytest.raises(NotImplementedError, match="11c"):
+    with pytest.raises(ValueError, match="a mesh or a device"):
         trl.Learner({"w": np.zeros(2, np.float32)}, None, 1e-3,
                     mesh=object(), device="cpu")
 
