@@ -195,12 +195,31 @@ process per source, all at once), then:
    ``WARM_MARGIN_REL_TOL``, cold and warm TTFT p50) and stream_bench's
    leg 1 at 7b (64 streams of 64 tokens, counts exact, tok/s); launches
    exact where the work fixes them;
-20. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
+20. the port's runtime (``cluster``): ``ray_tpu_torch.init()`` with no
+   arguments must find one GPU; a ``num_gpus=1`` task sees
+   ``CUDA_VISIBLE_DEVICES`` and one device while a CPU task beside it
+   imports no torch; the 7b embedding (32000 x 4096 bf16) as a CUDA
+   tensor put from here, through a GPU actor and back, bit-equal, timed
+   cold and warm; then ``TorchTrainer`` with one GPU worker
+   (``FailureConfig(max_failures=1)``, K = 4 from ``FastPathConfig``)
+   trains the 1b preset at full width and depth for 12 steps: a
+   checkpoint of (params, opt_state) through the session at step 4, one
+   ``os._exit`` in the first attempt, the restart resuming at step 4 and
+   making two launches, the second warm; after ``shutdown()`` the same
+   loop runs here, and the worker's losses must equal it within
+   ``CLUSTER_REL_TOL``, its launches exactly 2L/L/L a step (counted in
+   the worker, reported with its metrics), its warm step within
+   ``CLUSTER_WARM_RATIO`` of the warm step here; cluster start, gang
+   start to first report, step ms in the worker and here (cold and
+   warm), the report round trip, the checkpoint save and death to first
+   report;
+21. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
 
 Each path (serve, serve_kv, llm, spec, moe, train, driver, moe_train,
-rlhf, mesh, seqpipe, tools)
+rlhf, mesh, seqpipe, tools, cluster)
 zeroes every kernel's launch count
-just before it runs and reads them just after; a kernel of the paths that
+just before it runs and reads them just after (cluster: in its worker);
+a kernel of the paths that
 was not launched fails the run (the float32 CUDA-core forward is on no
 path: its entry reports its launches, 0, and its cases).
 
@@ -5717,9 +5736,341 @@ def tools_phase(torch, np, tllama, flash, smi):
     return launches
 
 
+# the runtime's path (``cluster``): a TorchTrainer gang of one GPU worker
+# trains the 1b preset CLUSTER_STEPS steps through a K = CLUSTER_K
+# StepDriver, reports a checkpoint at CLUSTER_DIE_AT, dies once there and
+# resumes from it; its losses against the same loop run in this process.
+# The resumed attempt makes two launches: the second is warm, and its step
+# time must stay within CLUSTER_WARM_RATIO of the warm in-process one's
+CLUSTER_STEPS, CLUSTER_K, CLUSTER_DIE_AT = 12, 4, 4
+CLUSTER_WARM_RATIO = 1.2
+CLUSTER_SEED = 18
+CLUSTER_REL_TOL = 1e-5
+CLUSTER_EMBED = (32000, 4096)   # the 7b embedding, bf16: 262 MB
+
+
+def cluster_batches(np, cfg, lo, hi):
+    """Batches lo..hi-1 of the cluster phase's seeded token stream."""
+    stream = np.random.default_rng(CLUSTER_SEED).integers(
+        0, cfg.vocab_size, size=(CLUSTER_STEPS, TRAIN_BATCH, TRAIN_SEQ + 1))
+    return [{"tokens": stream[i]} for i in range(lo, hi)]
+
+
+def cluster_train_loop(config):
+    """The train loop of the ``cluster`` phase: what every worker of the
+    gang runs (the gang is one worker). It builds the seeded state on its
+    device, or loads the session's checkpoint, and runs the remaining
+    steps through a ``StepDriver`` whose K the session's ``FastPathConfig``
+    sets, reporting after each launch with the per-step losses as a
+    device tensor (the session's drainer reads it) and the launches its
+    process made. At ``CLUSTER_DIE_AT`` it saves (params, opt_state)
+    through the session (an async save the report fences), waits until
+    the trainer has registered that checkpoint, notes the time and exits
+    without cleanup: the first attempt dies there once."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops import flash
+    from ray_tpu_torch.parallel import train_step as ts
+
+    dev, cfg, K = config["device"], config["cfg"], CLUSTER_K
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    opt = ts.default_optimizer(lr=3e-4, warmup_steps=2, total_steps=100)
+    ckpt = train.get_checkpoint()
+    t0 = time.perf_counter()
+    if ckpt is None:
+        params, state = ts.init_state(
+            cfg, opt, generator=torch.Generator(device=dev).manual_seed(0),
+            device=dev)
+        start = 0
+    else:
+        tree = ckpt.load_pytree(device=dev)
+        params, state, start = tree["params"], tree["opt_state"], \
+            tree["step"]
+    sync()
+    state_s = time.perf_counter() - t0
+    drv = train.StepDriver(cfg, opt, device=dev)
+    zero_launches(flash)
+    for lo in range(start, CLUSTER_STEPS, K):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] \
+            if dev == "cuda" else None
+        if ev:
+            ev[0].record()
+        t0 = time.perf_counter()
+        params, state, m = drv.run(params, state,
+                                   iter(cluster_batches(np, cfg, lo,
+                                                        lo + K)))
+        if ev:
+            ev[1].record()
+            ev[1].synchronize()
+        step, launch_s = lo + K, time.perf_counter() - t0
+        metrics = {"step": step, "losses": m["loss"],
+                   "steps_per_launch": drv.steps_per_launch,
+                   "launch_s": launch_s,
+                   # the device's clock on the card (the host's elsewhere)
+                   "ms_a_step": (ev[0].elapsed_time(ev[1]) if ev
+                                 else launch_s * 1e3) / K,
+                   "launches": read_launches(flash), "start": start,
+                   "state_s": state_s, "pid": os.getpid(),
+                   "cuda_visible_devices":
+                       os.environ.get("CUDA_VISIBLE_DEVICES"),
+                   "t_report": time.time()}
+        zero_launches(flash)
+        if step != CLUSTER_DIE_AT or ckpt is not None:
+            train.report(metrics)
+            continue
+        save = train.Checkpoint.from_directory(
+            os.path.join(config["tmp"], "worker_save"))
+        t0 = time.perf_counter()
+        save.save_pytree({"params": params, "opt_state": state,
+                          "step": step})     # async: the session decides
+        call_s = time.perf_counter() - t0
+        train.report(metrics, checkpoint=save)
+        save.wait_pending()
+        saved = {"call_s": call_s, "save_s": time.perf_counter() - t0,
+                 **save.last_save}
+        marker = os.path.join(config["run_dir"], "checkpoint_000000",
+                              "_metrics.json")
+        while not os.path.exists(marker):
+            time.sleep(0.01)
+        saved["t_exit"] = time.time()
+        with open(os.path.join(config["tmp"], "attempt0.json"), "w") as f:
+            json.dump(saved, f)
+        os._exit(1)
+
+
+def cluster_gpu_probe():
+    """A ``num_gpus=1`` task's view of its devices."""
+    import torch
+
+    return {"cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device_count": torch.cuda.device_count(),
+            "device_name": (torch.cuda.get_device_name(0)
+                            if torch.cuda.is_available() else None),
+            "pid": os.getpid()}
+
+
+def cluster_cpu_probe():
+    """A CPU task beside it: no GPU pinned, and torch never imported."""
+    return {"cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "torch_imported": "torch" in sys.modules, "pid": os.getpid()}
+
+
+class ClusterEcho:
+    """A GPU actor that takes a tensor argument and returns it."""
+
+    def ping(self):
+        return os.getpid()
+
+    def echo(self, x):
+        return {"device": str(x.device), "is_cuda": x.is_cuda,
+                "tensor": x}
+
+
+def cluster_phase(torch, np, tllama, flash, smi):
+    """The port's runtime on the card: ``ray_tpu_torch.init()`` with no
+    arguments (its GPU autodetected), a GPU task pinned to one device
+    beside a CPU task, the 7b embedding as a CUDA tensor through the
+    object plane and a GPU actor and back (bit-equal), then
+    ``TorchTrainer`` with one GPU worker training 1b at full width and
+    depth (``cluster_train_loop``: a checkpoint through the session at
+    step 4, one death, the resume from it), and after ``shutdown()`` the
+    same loop in this process as the reference: the losses within
+    ``CLUSTER_REL_TOL``, the worker's launches exactly 2L/L/L a step."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train import (FailureConfig, FastPathConfig,
+                                     RunConfig, ScalingConfig, StepDriver,
+                                     TorchTrainer)
+    from ray_tpu_torch.parallel import train_step as tts
+
+    cfg = dataclasses.replace(tllama.PRESETS["1b"], attn_impl="flash")
+    L = cfg.n_layers
+    out = {"phase": "cluster", "nvidia_smi": smi, "preset": "1b",
+           "steps": CLUSTER_STEPS, "k": CLUSTER_K,
+           "die_at": CLUSTER_DIE_AT}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    try:
+        # 1. the cluster, its GPU detected
+        t0 = time.perf_counter()
+        rt.init()
+        out["cluster_start_s"] = time.perf_counter() - t0
+        res = rt.cluster_resources()
+        out["cluster_resources"] = res
+        check(res.get("GPU") == 1, f"cluster: resources {res}, want GPU 1")
+
+        # 2. a GPU task and a CPU task at once
+        t0 = time.perf_counter()
+        gpu_ref = rt.remote(num_gpus=1)(cluster_gpu_probe).remote()
+        cpu_ref = rt.remote(cluster_cpu_probe).remote()
+        gpu, cpu = rt.get([gpu_ref, cpu_ref], timeout=300)
+        out["tasks"] = {"gpu": gpu, "cpu": cpu,
+                        "wall_s": time.perf_counter() - t0}
+        print(f"cluster: the GPU task sees {gpu['device_name']} "
+              f"(CUDA_VISIBLE_DEVICES={gpu['cuda_visible_devices']})",
+              flush=True)
+        check(gpu["cuda_visible_devices"] not in (None, "")
+              and gpu["device_count"] == 1,
+              f"cluster: the num_gpus=1 task saw {gpu}")
+        check(not cpu["torch_imported"] and cpu["pid"] != gpu["pid"],
+              f"cluster: the CPU task {cpu}")
+
+        # 3. a CUDA tensor through the object plane and a GPU actor
+        emb = torch.randn(CLUSTER_EMBED, generator=torch.Generator(
+            device=DEV).manual_seed(7), device=DEV).to(torch.bfloat16)
+        nbytes = emb.numel() * emb.element_size()
+        echo = rt.remote(num_gpus=1)(ClusterEcho).remote()
+        rt.get(echo.ping.remote(), timeout=300)   # up before the clock
+        trips = []
+        for trip in ("cold", "warm"):   # cold: the actor imports torch
+            t0 = time.perf_counter()
+            ref = rt.put(emb)
+            put_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = rt.get(echo.echo.remote(ref), timeout=300)
+            torch.cuda.synchronize()
+            trip_s = time.perf_counter() - t0
+            got = back["tensor"]
+            equal = bool(got.is_cuda and got.dtype == emb.dtype
+                         and torch.equal(got, emb))
+            trips.append({"trip": trip, "bytes": nbytes, "put_s": put_s,
+                          "roundtrip_s": trip_s,
+                          "actor_device": back["device"],
+                          "mb_per_s": 2 * nbytes / 1e6 / trip_s,
+                          "bit_equal": equal})
+            print(f"cluster: the 7b embedding ({nbytes / 1e6:.0f} MB, "
+                  f"bf16), {trip}: put in {put_s:.3f} s, to the GPU actor "
+                  f"and back in {trip_s:.3f} s "
+                  f"({2 * nbytes / 1e6 / trip_s:.0f} MB/s); bit-equal "
+                  f"{equal}", flush=True)
+            check(back["is_cuda"] and equal,
+                  f"cluster: the round trip {trips[-1]}")
+            del ref, back, got
+        out["roundtrip"] = trips
+        rt.kill(echo)
+        del emb
+
+        # 4. the gang: one GPU worker, one death, the resume
+        run_dir = os.path.join(tmp, "runs", "cluster_1b")
+        trainer = TorchTrainer(
+            cluster_train_loop,
+            train_loop_config={"device": DEV, "cfg": cfg, "tmp": tmp,
+                               "run_dir": run_dir},
+            scaling_config=ScalingConfig(num_workers=1, gpus_per_worker=1),
+            run_config=RunConfig(
+                name="cluster_1b", storage_path=os.path.join(tmp, "runs"),
+                failure_config=FailureConfig(max_failures=1),
+                fast_path=FastPathConfig(steps_per_launch=CLUSTER_K)))
+        t_fit = time.time()
+        result = trainer.fit()
+        fit_s = time.time() - t_fit
+        t0 = time.perf_counter()
+        rt.shutdown()
+        out["shutdown_s"] = time.perf_counter() - t0
+        hist = result.metrics_history
+        died = json.loads(Path(tmp, "attempt0.json").read_text())
+        check(result.error is None and [h["step"] for h in hist]
+              == list(range(CLUSTER_DIE_AT, CLUSTER_STEPS + 1, CLUSTER_K)),
+              f"cluster: fit {result.error}, steps "
+              f"{[h['step'] for h in hist]}")
+        # the checkpointed report, the resumed attempt's cold launch and
+        # its warm one
+        first, resumed, warm = hist
+        check(first["start"] == 0 and resumed["start"] == CLUSTER_DIE_AT
+              and first["pid"] != resumed["pid"]
+              and "checkpoint_path" in first,
+              f"cluster: attempts start at {first['start']} and "
+              f"{resumed['start']} (pids {first['pid']}, "
+              f"{resumed['pid']}), want 0 and {CLUSTER_DIE_AT}")
+        worker_losses = [float(x) for h in hist for x in h["losses"]]
+        launches = {k: sum(h["launches"][k] for h in hist)
+                    for k in first["launches"]}
+        check_launches(launches, "cluster", L, CLUSTER_STEPS)
+
+        # 5. the reference: the same loop, uninterrupted, in this process
+        torch.cuda.empty_cache()
+        opt = tts.default_optimizer(lr=3e-4, warmup_steps=2, total_steps=100)
+        params, state = tts.init_state(
+            cfg, opt, generator=torch.Generator(device=DEV).manual_seed(0),
+            device=DEV)
+        drv = StepDriver(cfg, opt, steps_per_launch=CLUSTER_K, device=DEV)
+        ref_losses, ref_ms = [], []
+        before = read_launches(flash)
+        for lo in range(0, CLUSTER_STEPS, CLUSTER_K):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            params, state, m = drv.run(params, state, iter(
+                cluster_batches(np, cfg, lo, lo + CLUSTER_K)))
+            ev[1].record()
+            ev[1].synchronize()
+            ref_ms.append(ev[0].elapsed_time(ev[1]) / CLUSTER_K)
+            ref_losses += [float(x) for x in m["loss"]]
+        restore_launches(flash, before)
+        del params, state, drv, m
+        torch.cuda.empty_cache()
+        rel = [abs(a - b) / abs(b) for a, b in zip(worker_losses,
+                                                    ref_losses)]
+        out.update({
+            "fit_s": fit_s,
+            "gang_start_to_first_report_s": first["_timestamp"] - t_fit,
+            "report_roundtrip_ms": (warm["_timestamp"]
+                                    - warm["t_report"]) * 1e3,
+            "checkpoint_report_roundtrip_ms": (first["_timestamp"]
+                                               - first["t_report"]) * 1e3,
+            "checkpoint": died,
+            "death_to_first_report_s": resumed["_timestamp"]
+            - died["t_exit"],
+            "worker_state_s": [first["state_s"], resumed["state_s"]],
+            "worker_ms_a_step": [h["ms_a_step"] for h in hist],
+            "in_process_ms_a_step": ref_ms,
+            "warm_ms_a_step": {"worker": warm["ms_a_step"],
+                               "in_process": ref_ms[-1]},
+            "worker_steps_per_launch": [h["steps_per_launch"]
+                                        for h in hist],
+            "worker_cuda_visible_devices": first["cuda_visible_devices"],
+            "losses": worker_losses, "reference_losses": ref_losses,
+            "loss_rel": rel, "launches": launches,
+            "launches_a_step": {k: launches[k] / CLUSTER_STEPS
+                                for k in ("flash_fwd_tcb", "flash_dq",
+                                          "flash_dkv")}})
+        print(f"cluster ({smi}): start {out['cluster_start_s']:.2f} s, "
+              f"gang start to first report "
+              f"{out['gang_start_to_first_report_s']:.1f} s, worker "
+              f"{[round(x, 2) for x in out['worker_ms_a_step']]} ms a step "
+              f"against {[round(x, 2) for x in ref_ms]} in process (warm "
+              f"{warm['ms_a_step']:.2f} against {ref_ms[-1]:.2f}), report "
+              f"round trip {out['report_roundtrip_ms']:.1f} ms, checkpoint "
+              f"save {died['save_s']:.1f} s, death to first report "
+              f"{out['death_to_first_report_s']:.1f} s, launches a step "
+              f"{out['launches_a_step']}", flush=True)
+        check(all(s == CLUSTER_K for s in out["worker_steps_per_launch"]),
+              f"cluster: the session's K reached the driver as "
+              f"{out['worker_steps_per_launch']}")
+        check(max(rel) <= CLUSTER_REL_TOL,
+              f"cluster: worker losses {worker_losses} against "
+              f"{ref_losses} (rel {max(rel)})")
+        check(warm["ms_a_step"] <= CLUSTER_WARM_RATIO * ref_ms[-1],
+              f"cluster: the worker's warm step {warm['ms_a_step']:.2f} ms "
+              f"against {ref_ms[-1]:.2f} in process")
+    finally:
+        if rt.is_initialized():
+            rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return launches
+
+
 PHASES = ("kernel", "bwd", "integration", "grad", "serve", "llm", "spec",
           "moe", "train", "driver", "moe_train", "rlhf", "anakin", "rl",
-          "vit", "mesh", "seqpipe", "tools")
+          "vit", "mesh", "seqpipe", "tools", "cluster")
 
 
 def kernel_entry(name, source, replaces, launches, head, part=None,
@@ -5840,6 +6191,8 @@ def main(argv=None) -> int:
                                             flash, smi)
     if "tools" in only:
         launches["tools"] = tools_phase(torch, np, tllama, flash, smi)
+    if "cluster" in only:
+        launches["cluster"] = cluster_phase(torch, np, tllama, flash, smi)
     if args.only is not None:
         print(json.dumps({"partial_run": sorted(only)}), flush=True)
         return 0

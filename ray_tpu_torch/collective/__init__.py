@@ -3,7 +3,8 @@
 default process group, and the group API (``init_collective_group``,
 ``allreduce``, ...) runs named subgroups of it. Weight shipping over the
 cluster runtime's stream plane (``ship_params``, ``fetch_params``) is not
-ported."""
+ported yet (ROADMAP item R4). A gang started by the port's runtime meets
+through its GCS key-value store."""
 
 from ray_tpu_torch.collective.collective import (  # noqa: F401
     allgather,

@@ -22,7 +22,8 @@ same shape and dtype on every rank, as the backends do.
 
 ``create_collective_group`` (a runtime actor), ``ship_params``,
 ``fetch_params``, ``cancel_shipment`` and ``shipment_receipt`` ride the
-cluster runtime's object and stream planes and are not ported.
+cluster runtime's object and stream planes and are not ported yet
+(ROADMAP item R4).
 """
 
 from __future__ import annotations

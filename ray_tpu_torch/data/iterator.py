@@ -4,7 +4,8 @@ feed half of ``ray_tpu/data/iterator.py``).
 ``iter_device_batches`` is ``DataIterator.iter_jax_batches``' host and
 device generators over any iterator of dict-of-numpy batches; the JAX
 package's Dataset and block plane belongs to its cluster runtime and is
-not ported (pass ``ds.iter_batches(...)`` of it, or any generator).
+not ported yet (ROADMAP item R3; pass ``ds.iter_batches(...)`` of it, or
+any generator).
 
 On ``cuda`` the device put runs on the prefetch thread, ``prefetch``
 batches ahead of the consumer: each leaf is copied into pinned host

@@ -16,7 +16,8 @@ named ``AXIS_ORDER``; rank ``r`` of the default process group sits where
 JAX puts device ``r``. One rank drives one device, so JAX's devices
 become ranks and a slice (a group of devices on one interconnect) becomes
 a host. ``pg_slice_assignments`` and ``mesh_for_slice_group`` read the
-cluster runtime's placement groups and are not ported.
+cluster runtime's placement groups and are not ported yet (ROADMAP
+item R4).
 """
 
 from __future__ import annotations

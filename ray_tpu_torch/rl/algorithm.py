@@ -328,7 +328,7 @@ class Algorithm(DeviceTrainable):
 def make_learner(algo: Algorithm, loss_fn: Callable):
     """PPO's and A2C's learner on the algorithm's device; where
     ``num_learners > 0`` JAX builds a ``LearnerGroup`` of actors, which
-    the port refuses (ROADMAP item R)."""
+    the port refuses (ROADMAP item R2)."""
     cfg = algo.config
     if cfg.num_learners > 0:
         return LearnerGroup(cfg.num_learners, cfg.num_tpus_per_learner)

@@ -6,7 +6,7 @@ Reference analogs: ``rllib/algorithms/bc/`` and ``rllib/algorithms/marwil/``
 a dict of arrays (obs, actions, and for MARWIL rewards/dones for
 monte-carlo returns), with no environment interaction; the env is only
 probed for the spec. JAX also takes a ``ray_tpu.data.Dataset`` of such
-rows; the port has no Dataset (ROADMAP item R) and refuses one.
+rows; the port has no Dataset yet (ROADMAP item R3) and refuses one.
 """
 
 from __future__ import annotations
@@ -32,8 +32,8 @@ def _to_arrays(data) -> Dict[str, np.ndarray]:
                 for k, a in arrays.items()}
     raise TypeError(
         f"offline_data must be a dict of arrays, got {type(data)}; JAX's "
-        "ray_tpu.data.Dataset input needs the cluster runtime, which the "
-        "port does not have (ROADMAP item R)")
+        "ray_tpu.data.Dataset input needs the port's Dataset, which is "
+        "not ported yet (ROADMAP item R3)")
 
 
 def _mc_returns(rewards, dones, gamma, env_ids=None) -> np.ndarray:

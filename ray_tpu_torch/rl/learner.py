@@ -25,7 +25,7 @@ from the learner's generator (SAC, CQL, CRR, TD3) draws it through
 ``models.noise_on_mesh``: each draw is the global noise as a replicated
 DTensor, the same on every rank, as JAX's replicated key draws it.
 ``LearnerGroup`` (learner actors syncing gradients through the cluster's
-collectives) needs the cluster runtime (ROADMAP item R).
+collectives) waits for RL on the port's actors (ROADMAP item R2).
 """
 
 from __future__ import annotations
@@ -201,10 +201,10 @@ class Learner:
 
 
 class LearnerGroup:
-    """JAX's data-parallel group of learner actors: not ported (ROADMAP
-    item R, the cluster runtime)."""
+    """JAX's data-parallel group of learner actors: not ported yet
+    (ROADMAP item R2, RL on the port's actors)."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            "LearnerGroup (num_learners > 0) needs the cluster runtime, "
-            "which the port does not have (ROADMAP item R)")
+            "LearnerGroup (num_learners > 0) needs learner actors on the "
+            "port's runtime, which are not ported yet (ROADMAP item R2)")

@@ -18,8 +18,9 @@ One iteration is four phases over four roles:
              phase decodes the new ones
 
 One-device placement. JAX places each role in its own actor of a
-placement group and moves the weights over its stream plane. The port
-has no cluster runtime: the four roles are plain objects in one process,
+placement group and moves the weights over its stream plane. The roles
+as actors of the port's runtime are a later slice (ROADMAP item R2):
+here the four roles are plain objects in one process,
 on one device (``cuda`` unless asked), called in JAX's phase order, and
 reward and reference score one after the other where JAX runs them in
 parallel. ``ship_weights`` returns a ticket holding a COPY of the policy

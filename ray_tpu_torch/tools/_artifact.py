@@ -38,5 +38,6 @@ def write_artifact(artifact: Dict[str, Any], out: Optional[str],
 
 def refuse_runtime_legs(prog: str, legs: str) -> None:
     raise SystemExit(
-        f"{prog}: {legs} need the cluster runtime the port does not have "
-        f"(ROADMAP item R); only leg 1, the engine leg, runs in process")
+        f"{prog}: {legs} need the serve deployment layer and the stream "
+        f"transport on the port's runtime, which are not ported yet "
+        f"(ROADMAP item R1); only leg 1, the engine leg, runs in process")

@@ -17,8 +17,9 @@ hits, misses, bytes, pages and evictions; it goes to ``RT_KV_BENCH_OUT``
 or stdout, never to a default file.
 
 JAX's legs 2 and 3 (the shared-prefix trace through serve deployment
-handles at equal and at twice the offered load) need the cluster runtime
-(ROADMAP item R): ``--serve`` asks for them and is refused.
+handles at equal and at twice the offered load) need the serve
+deployment layer on the port's runtime (ROADMAP item R1): ``--serve``
+asks for them and is refused.
 
 Env knobs as JAX's: RT_KV_BENCH_{PRESET,PREFIX,NEW,ENG_PREFIX,SLOTS,
 STRIDE,OUT}. The device is ``cuda`` unless ``--device`` says otherwise.

@@ -20,7 +20,8 @@ timeline. The ``rt_step_*`` section prints the profiler's metric
 observations and the ``rt_hbm_used_bytes`` gauges through a text sink.
 
 JAX's tool runs under its cluster runtime (a probe task, the GCS event
-store, the metrics registry); the port has none (ROADMAP item R), so
+store, the metrics registry), whose twins on the port's runtime are not
+ported yet (ROADMAP item R5), so
 ``--address`` is refused, the profiler's state and the device's peak
 memory are reset at the start of a run (as a fresh process would have
 them), and the drain goes to sinks of this tool. The device is ``cuda`` unless ``--device`` says otherwise.
@@ -234,8 +235,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "and CUDA activities) into DIR as a Chrome "
                              "trace: the per-kernel device timeline")
     parser.add_argument("--address", default=None,
-                        help="attach to a running cluster (refused: the "
-                             "port has no cluster runtime)")
+                        help="attach to a running cluster (refused: "
+                             "ROADMAP item R5)")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; raises without "
                              "a GPU unless 'cpu' is asked for)")
@@ -245,8 +246,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.address:
         raise SystemExit(
             "rt profile: --address attaches to a cluster, which needs the "
-            "cluster runtime the port does not have (ROADMAP item R); run "
-            "without it to profile in this process")
+            "runtime's tooling the port has not ported yet (ROADMAP item "
+            "R5); run without it to profile in this process")
 
     from ray_tpu_torch.util import step_profiler
     from ray_tpu_torch.util.memory import publish_hbm_gauges

@@ -12,7 +12,7 @@ must deliver exactly its token count. The artifact (schema
 ``RT_STREAM_BENCH_OUT`` or stdout, never to a default file.
 
 JAX's push and pull legs and its RPCs-per-request sweep measure the
-stream transport of the cluster runtime (ROADMAP item R): ``--serve``
+stream transport of the port's runtime (ROADMAP item R1): ``--serve``
 asks for them and is refused; ``max_len`` is sized for leg 1 alone (16 +
 the token count).
 

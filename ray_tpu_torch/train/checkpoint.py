@@ -434,11 +434,18 @@ class Checkpoint:
         place right after. The save is only durable after
         :meth:`wait_pending` (called automatically when the checkpoint is
         pickled, loaded, or registered with a ``CheckpointManager``).
-        ``blocking=None`` blocks, as JAX's does outside a train session
-        (the port has none).
+        ``blocking=None``: inside a train session the trainer's
+        ``FastPathConfig.async_checkpoint`` decides; standalone saves
+        block, as JAX's do.
         """
+        if blocking is None:
+            from ray_tpu_torch.train import session as _session_mod
+
+            live = _session_mod._session  # None outside a train loop
+            blocking = (True if live is None
+                        else not live.fast_path.async_checkpoint)
         os.makedirs(self.path, exist_ok=True)
-        if blocking is None or blocking:
+        if blocking:
             self._save_pytree_sync(tree, name)
             return
         snap = _snapshot(tree)

@@ -26,9 +26,9 @@ With ``mesh=`` (or ``plan=``) the driver compiles the sharding plan
 from the mesh, as JAX's does, runs the steps on the DTensor state of
 ``init_sharded_state``, and places each batch, or each stacked K-batch,
 through ``plan.place_batch``: every rank feeds the same global batches
-and keeps its rows. JAX's ``steps_per_launch=None`` reads the train
-session's ``FastPathConfig``; the port has no session, so the knob is
-passed here and defaults to 1.
+and keeps its rows. ``steps_per_launch=None`` reads the train
+session's ``FastPathConfig`` (``train.get_fast_path()``; 1 outside a
+session), as JAX's does.
 """
 
 from __future__ import annotations
@@ -77,10 +77,14 @@ class StepDriver:
 
     def __init__(self, cfg: Any, optimizer: Any, *,
                  mesh: Any = None, loss_fn: Optional[Callable] = None,
-                 steps_per_launch: int = 1,
+                 steps_per_launch: Optional[int] = None,
                  plan: Any = None, device: DeviceLike = None,
                  hooks: Optional[TrainHooks] = None,
                  sinks: Optional[Sinks] = None):
+        if steps_per_launch is None:
+            from ray_tpu_torch.train.session import get_fast_path
+
+            steps_per_launch = get_fast_path().steps_per_launch
         if steps_per_launch < 1:
             raise ValueError(
                 f"steps_per_launch must be >= 1, got {steps_per_launch}")

@@ -4,7 +4,7 @@ memory column, and the ``rt_hbm_used_bytes`` gauges).
 The JAX package's ``util/memory.py`` walks the cluster's nodes and reads
 each JAX device's ``memory_stats()``; the port reads the caching
 allocator of each local CUDA device and nothing else. The cluster-wide
-``memory_summary`` waits for the cluster runtime (ROADMAP item R).
+``memory_summary`` waits for the runtime's tooling (ROADMAP item R5).
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ JAX's ``_step_lanes`` lays them out.
 
 JAX's ``timeline()`` also draws task, phase, memory, failure, engine and
 serve lanes from the cluster's task-event store. Those wait for the
-cluster runtime (ROADMAP item R); here the events come from the caller,
+runtime's tooling (ROADMAP item R5); here the events come from the caller,
 as ``step_profiler.drain`` hands them to ``Sinks.events``.
 """
 

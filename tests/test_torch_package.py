@@ -125,7 +125,26 @@ def test_port_imports_no_jax_and_no_ray_tpu():
             "ray_tpu_torch/util/timeline.py",
             "ray_tpu_torch/tools/profile.py",
             "ray_tpu_torch/tools/kv_bench.py",
-            "ray_tpu_torch/tools/stream_bench.py", "chip_smoke.py"} <= names
+            "ray_tpu_torch/tools/stream_bench.py", "chip_smoke.py",
+            # the runtime core and the Train library on it
+            "ray_tpu_torch/__init__.py", "ray_tpu_torch/exceptions.py",
+            "ray_tpu_torch/runtime_context.py",
+            "ray_tpu_torch/_private/serialization.py",
+            "ray_tpu_torch/_private/accelerator.py",
+            "ray_tpu_torch/core/worker.py",
+            "ray_tpu_torch/core/local_backend.py",
+            "ray_tpu_torch/core/resources.py",
+            "ray_tpu_torch/dag/dag_node.py",
+            "ray_tpu_torch/scheduler/policy.py",
+            "ray_tpu_torch/util/placement_group.py",
+            "ray_tpu_torch/cluster/gcs.py", "ray_tpu_torch/cluster/raylet.py",
+            "ray_tpu_torch/cluster/worker_core.py",
+            "ray_tpu_torch/cluster/worker_main.py",
+            "ray_tpu_torch/runtime_env/runtime_env.py",
+            "ray_tpu_torch/_native/__init__.py",
+            "ray_tpu_torch/train/config.py", "ray_tpu_torch/train/session.py",
+            "ray_tpu_torch/train/worker_group.py",
+            "ray_tpu_torch/train/trainer.py"} <= names
     bad = [(f.relative_to(ROOT), mod) for f in files
            for mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
