@@ -69,7 +69,7 @@ process per source, all at once), then:
 7. the serving front end (``llm``): ``ContinuousLLM("7b")`` (8 slots,
    max_len 1024, stride 8, other arguments at their defaults) and its
    ``StaticLLM`` control (8 rows, prompts padded to 512, 32 new tokens),
-   each driven by ``poisson_load`` at 4 requests/s for 40 s (seed 0, 16
+   each driven by ``poisson_load`` at 4 requests/s for 6 s (seed 0, 16
    in flight) with prompts of the serve lengths and 32 new tokens, through
    ``__call__`` on an asyncio loop thread; no request may fail, each
    stream has 32 in-vocab tokens and its first equals batch-1
@@ -78,7 +78,7 @@ process per source, all at once), then:
    and the prefix-cache captures' copy time for both;
 8. speculative decode (``spec``): the 7b target with itself and with the
    1b preset as the draft (k 4; b 1, and b 4 for the 1b draft; 256-token
-   prompts, 64 new): rounds, acceptance, ms a token against plain
+   prompts, 32 new): rounds, acceptance, ms a token against plain
    ``generate`` at the same b; every emitted token of every row equals
    the argmax of one teacher-forced target forward over the prompt and
    the run's own output wherever that forward's top-2 margin is at least
@@ -193,7 +193,7 @@ process per source, all at once), then:
    timeline step span a record; kv_bench's leg 1 at 7b (warm hits, first
    tokens against a cold forward wherever the margin clears
    ``WARM_MARGIN_REL_TOL``, cold and warm TTFT p50) and stream_bench's
-   leg 1 at 7b (64 streams of 64 tokens, counts exact, tok/s); launches
+   leg 1 at 7b (16 streams of 64 tokens, counts exact, tok/s); launches
    exact where the work fixes them;
 20. the port's runtime (``cluster``): ``ray_tpu_torch.init()`` with no
    arguments must find one GPU; a ``num_gpus=1`` task sees
@@ -213,12 +213,27 @@ process per source, all at once), then:
    start to first report, step ms in the worker and here (cold and
    warm), the report round trip, the checkpoint save and death to first
    report;
-21. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
+21. the serve deployment layer (``deploy``): the port's cluster with its
+   one GPU; a streaming GPU task yielding bf16 CUDA tensors, bit-equal to
+   the same seeded draws here, and an endless one closed early (the GPU
+   it held then takes the next task); ``continuous_llm_app("7b")`` on a
+   one-GPU replica (``CUDA_VISIBLE_DEVICES`` pinned) serving
+   ``SERVE_PROMPT_LENS`` greedily one at a time through the handle (push,
+   then pull) and through HTTP, every token equal to an in-process
+   ``ContinuousEngine`` of the same config fed the same way; ``tcb`` and
+   ``dec`` counted in the replica; stream_bench's push and pull legs with
+   the RPC sweep on that replica against its raw engine leg here, and
+   kv_bench's legs 2 and 3 (cuts in ``DEPLOY_CUTS``); cluster start,
+   replica start to ready, TTFT p50/p99 through the handle and HTTP,
+   ``push_vs_raw_ratio``, RPCs a request by token count, warm against
+   cold TTFT;
+22. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
 
 Each path (serve, serve_kv, llm, spec, moe, train, driver, moe_train,
-rlhf, mesh, seqpipe, tools, cluster)
+rlhf, mesh, seqpipe, tools, cluster, deploy)
 zeroes every kernel's launch count
-just before it runs and reads them just after (cluster: in its worker);
+just before it runs and reads them just after (cluster: in its worker;
+deploy: in its replica, as the difference of two reads around the path);
 a kernel of the paths that
 was not launched fails the run (the float32 CUDA-core forward is on no
 path: its entry reports its launches, 0, and its cases).
@@ -312,8 +327,14 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+#: the script's start on the host clock; every phase line carries its
+#: seconds since (``script_s``), which is how the phases' share of the time
+#: limit is read
+T_START = time.perf_counter()
+
+
 def emit(obj):
-    line = json.dumps(obj)
+    line = json.dumps(dict(obj, script_s=time.perf_counter() - T_START))
     print(line, flush=True)
     if JSONL is not None:
         with JSONL.open("a") as f:
@@ -1576,8 +1597,8 @@ def train_phase(torch, np, tllama, tts, tflops, flash):
 
 # ------------------------------------------------------------ phases 8-10
 
-LLM_RPS, LLM_DURATION_S, LLM_MAX_INFLIGHT = 4.0, 40.0, 16
-SPEC_K, SPEC_PROMPT, SPEC_NEW = 4, 256, 64
+LLM_RPS, LLM_DURATION_S, LLM_MAX_INFLIGHT = 4.0, 6.0, 16
+SPEC_K, SPEC_PROMPT, SPEC_NEW = 4, 256, 32
 MOE_PRESET, MOE_BATCH, MOE_PROMPT, MOE_NEW = "8x410m", 4, 256, 32
 
 
@@ -1681,7 +1702,7 @@ def llm_phase(torch, np, TG, flash):
     """The serving front end at 7b: ``ContinuousLLM`` (8 slots, max_len
     1024, stride 8) and its ``StaticLLM`` control (8 rows, prompts padded
     to 512, 32 new tokens), each under ``poisson_load`` at 4 requests/s
-    for 40 s (seed 0, 16 in flight), prompts of SERVE_PROMPT_LENS, 32 new
+    for 6 s (seed 0, 16 in flight), prompts of SERVE_PROMPT_LENS, 32 new
     tokens each, ``__call__`` on an asyncio loop thread. The continuous
     leg runs the default 64 MiB prefix cache: at 7b a request's KV is 512
     KiB a token, so most captures are copied to the host and then refused
@@ -1814,7 +1835,7 @@ def teacher_forced(torch, TG, params, cfg, prompt, toks):
 def spec_phase(torch, np, tllama, TG, flash):
     """Greedy speculative decode with the 7b target: the target drafting
     for itself (k 4, b 1) and the 1b preset drafting (k 4, b 1 and b 4);
-    prompts of 256 tokens, 64 new. Rounds, acceptance and ms per token
+    prompts of 256 tokens, 32 new. Rounds, acceptance and ms per token
     against plain ``generate`` at the same b. Exactness by teacher
     forcing: one target forward over each run's prompt and output gives
     the greedy choice after every emitted prefix, and every emitted token
@@ -3775,7 +3796,7 @@ RL_QMIX_YAML_ITERS = 8
 RL_MADDPG_YAML = {"num_envs_per_runner": 16, "rollout_fragment_length": 25,
                   "learning_starts": 400, "minibatch_size": 128,
                   "updates_per_iter": 64, "noise_decay_steps": 4000}
-RL_MADDPG_ITERS = 10
+RL_MADDPG_ITERS = 4   # the yaml runs 10; cut for the script's time limit
 # MAML: the default config (seed 0), tests/test_pg_maml.py:72-89
 RL_MAML_ITERS, RL_MAML_GAIN = 30, 0.05
 RL_MBMPO_YAML = {"ensemble_size": 5, "real_steps_per_iter": 400,
@@ -3783,10 +3804,11 @@ RL_MBMPO_YAML = {"ensemble_size": 5, "real_steps_per_iter": 400,
                  "meta_steps_per_iter": 8}
 RL_MBMPO_ITERS = 3
 # cartpole-dreamerv3 at its full widths: 128 steps an iteration, updates
-# from the 8th (1,024 >= 1,000), 10 updating iterations in 17
+# from the 8th (1,024 >= 1,000): 3 updating iterations in 10 (cut from 17
+# for the script's time limit)
 RL_DREAMER_YAML = {"num_envs_per_runner": 8, "rollout_fragment_length": 16,
                    "learning_starts": 1000, "updates_per_iter": 8}
-RL_DREAMER_ITERS = 17
+RL_DREAMER_ITERS = 10
 # tests/test_dreamer.py:9-20 and :37-54, the world-model check: rew_loss
 # below 0.2x its first value, cont_loss and recon_loss below theirs
 RL_DREAMER_SMALL = {"num_envs_per_runner": 4, "rollout_fragment_length": 16,
@@ -4128,8 +4150,9 @@ def rl_multi_agent_model_based(torch, np, rltrain, flash, smi):
                         for k, v in dreamer.get_params().items()},
             iteration_profiled=rl_busy_share(torch, dreamer.train),
             **summary)
-    check(updating == 10, f"cartpole-dreamerv3: {updating} updating "
-                          "iterations, want 10")
+    check(updating == RL_DREAMER_ITERS - 7,
+          f"cartpole-dreamerv3: {updating} updating iterations, want "
+          f"{RL_DREAMER_ITERS - 7}")
     before = read_launches(flash)
     clock, last, _ = rl_run(torch, np, rltrain, "DREAMERV3", "CartPole-v1",
                             RL_DREAMER_SMALL, RL_DREAMER_SMALL_ITERS)
@@ -5448,6 +5471,9 @@ def restore_launches(flash, counts):
 # and dec
 TOOLS_TRAIN = ["--preset", "1b", "--mode", "train", "--batch", "4",
                "--seq", "2048"]
+#: stream_bench leg 1's concurrent streams at 7b (JAX's 64; cut to keep
+#: the script inside its time limit)
+TOOLS_STREAMS = 16
 TOOLS_PROFILE_RUNS = (
     ("train_k1", TOOLS_TRAIN + ["--steps", "5"], [("train", 5, 1)]),
     ("train_k4", TOOLS_TRAIN + ["--steps-per-launch", "4", "--steps", "8"],
@@ -5704,11 +5730,13 @@ def tools_phase(torch, np, tllama, flash, smi):
               f"kv_bench: launches {kv_launched}, want tcb "
               f"{cfg.n_layers * admissions} (a layer an admission)")
 
-        # 3. stream_bench leg 1 at 7b, JAX's defaults
+        # 3. stream_bench leg 1 at 7b, JAX's defaults but the stream count
         before = read_launches(flash)
         t0 = time.perf_counter()
         rc, text = run_tool(stream_bench.main, ["--device", DEV],
-                            env={"RT_STREAM_BENCH_PRESET": "7b"})
+                            env={"RT_STREAM_BENCH_PRESET": "7b",
+                                 "RT_STREAM_BENCH_STREAMS":
+                                     str(TOOLS_STREAMS)})
         st_wall_s = time.perf_counter() - t0
         st_launched = launch_delta_since(flash, before)
         st = json.loads(text)
@@ -5719,12 +5747,14 @@ def tools_phase(torch, np, tllama, flash, smi):
         out["stream_bench"] = {"artifact": st, "wall_s": st_wall_s,
                                "launches": st_launched}
         check(rc == 0 and st["schema"] == "rt-stream-bench-1"
-              and raw["streams"] == 64 and raw["tokens_per_stream"] == 64,
+              and raw["streams"] == TOOLS_STREAMS
+              and raw["tokens_per_stream"] == 64,
               f"stream_bench: rc {rc}, {raw}")
-        check(st_launched["flash_fwd_tcb"] == cfg.n_layers * 3 * 64
+        check(st_launched["flash_fwd_tcb"] == cfg.n_layers * 3 * TOOLS_STREAMS
               and st_launched["flash_fwd_dec"] > 0,
               f"stream_bench: launches {st_launched}, want tcb "
-              f"{cfg.n_layers * 3 * 64} (three runs of 64 admissions)")
+              f"{cfg.n_layers * 3 * TOOLS_STREAMS} (three runs of "
+              f"{TOOLS_STREAMS} admissions)")
     finally:
         step_profiler.reset()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -6068,9 +6098,416 @@ def cluster_phase(torch, np, tllama, flash, smi):
     return launches
 
 
+# ------------------------------------------------------------ phase 21
+
+DEPLOY_SEED = 0
+DEPLOY_ENGINE = {"max_slots": 8, "max_len": 1024, "decode_stride": 8}
+DEPLOY_STREAM_ITEMS = 6
+DEPLOY_STREAM_SHAPE = (4096, 4096)   # bf16: 32 MiB an item
+DEPLOY_STREAM_BENCH = {"streams": 16, "tokens": 32, "sweep": [16, 64],
+                       "per_n": 1}
+DEPLOY_KV_BENCH = {"prefix_len": 1024, "suffix_len": 56, "max_new": 8,
+                   "slots": 8, "stride": 4, "rps": 5.0, "secs": 2.0,
+                   "rounds": 1}
+#: what the phase cuts from each tool's defaults (JAX's knobs)
+DEPLOY_CUTS = {
+    "stream_bench": "16 streams of 32 tokens (JAX 64 of 64); the RPC "
+                    "sweep at 16 and 64 "
+                    "tokens, 1 request each (JAX 16, 64, 256, 4 each; a "
+                    "request's RPC count does not vary); "
+                    "the push and pull legs on "
+                    "the phase's replica (JAX deploys one a leg; the pull "
+                    "knob is the consumer's)",
+    "kv_bench": "legs 2 and 3 only (leg 1 runs in tools); 1 round of 2 s "
+                "a leg (JAX 3 of 12 s); each replica a quarter of the "
+                "one GPU"}
+
+
+def deploy_cuda_stream(n, endless=False):
+    """A streaming GPU task: ``n`` bf16 CUDA tensors from a seeded
+    generator (or without end)."""
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(DEPLOY_SEED)
+    i = 0
+    while endless or i < n:
+        yield torch.randn(DEPLOY_STREAM_SHAPE, generator=g,
+                          device=DEV).to(torch.bfloat16)
+        i += 1
+
+
+def deploy_llm_class():
+    """``ContinuousLLM`` with two methods for the phase: the replica's
+    device view, and its flash launch counts (``read_launches`` in the
+    replica's process)."""
+    from ray_tpu_torch.serve.llm import ContinuousLLM
+
+    class DeployLLM(ContinuousLLM):
+        def device_info(self):
+            import torch
+
+            return {"cuda_visible_devices":
+                    os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "device_count": torch.cuda.device_count(),
+                    "device": str(self.device),
+                    "device_name": (torch.cuda.get_device_name(0)
+                                    if torch.cuda.is_available() else None),
+                    "pid": os.getpid()}
+
+        def launches(self):
+            from ray_tpu_torch.ops import flash
+
+            return read_launches(flash)
+
+    DeployLLM.__name__ = DeployLLM.__qualname__ = "ContinuousLLM"
+    return DeployLLM
+
+
+def deploy_http_request(port, route, prompt, n_new):
+    """One streamed HTTP request: its tokens (a line each) and the seconds
+    to the first."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request("POST", route, json.dumps(
+        {"tokens": [int(t) for t in prompt], "max_new_tokens": n_new}),
+        {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    toks, ttft = [], None
+    while True:
+        line = resp.readline()
+        if not line:
+            break
+        if ttft is None:
+            ttft = time.perf_counter() - t0
+        toks += [int(t) for t in line.split()]
+    status = resp.status
+    conn.close()
+    return {"status": status, "tokens": toks, "ttft_s": ttft}
+
+
+def deploy_handle_request(h, prompt, n_new):
+    """One streamed handle request: its tokens, the seconds to the first,
+    its transport and RPC count."""
+    t0 = time.perf_counter()
+    gen = h.remote({"tokens": [int(t) for t in prompt],
+                    "max_new_tokens": n_new}).result(timeout=600)
+    toks, ttft = [], None
+    for t in gen:
+        if ttft is None:
+            ttft = time.perf_counter() - t0
+        toks.append(int(t))
+    return {"tokens": toks, "ttft_s": ttft, "transport": gen._transport,
+            "rpcs": gen._rpcs}
+
+
+def pcts(np, vals):
+    return {"p50": float(np.percentile(vals, 50)),
+            "p99": float(np.percentile(vals, 99))}
+
+
+def card_used(torch):
+    """Bytes in use on the card, by every process (0 on the CPU)."""
+    if DEV != "cuda":
+        return 0
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+def deploy_wait_card_free(torch, used0, slack_gib=2.0, timeout_s=120.0):
+    """Seconds until the card's memory in use is back within ``slack_gib``
+    of ``used0`` (a deleted replica's process has exited); fails after
+    ``timeout_s``."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    while card_used(torch) > used0 + slack_gib * 2**30:
+        check(time.perf_counter() - t0 < timeout_s,
+              f"deploy: {card_used(torch) / 2**30:.1f} GiB of the card "
+              f"still held {timeout_s:.0f} s after a deployment was "
+              f"deleted (before it: {used0 / 2**30:.1f} GiB)")
+        time.sleep(0.5)
+    return time.perf_counter() - t0
+
+
+def deploy_reference(torch, tllama, cfg, prompts, n_new, between):
+    """An in-process ``ContinuousEngine`` of the replica's config and
+    seed: its greedy tokens, fed one request at a time as the replica will
+    be; then ``between()``; then stream_bench's raw leg on it
+    (``DEPLOY_STREAM_BENCH``); its weights and cache are freed on
+    return."""
+    from ray_tpu_torch.models.serving import ContinuousEngine
+    from ray_tpu_torch.tools import stream_bench
+
+    params = tllama.init_params(
+        cfg, generator=torch.Generator(device=DEV).manual_seed(DEPLOY_SEED),
+        device=DEV)
+    eng = ContinuousEngine(params, cfg, **DEPLOY_ENGINE, kv_cache_bytes=0,
+                           device=DEV)
+    ref = []
+    try:
+        for p in prompts:
+            wave = Wave(eng, "deploy_ref", n_new)
+            wave.submit(p)
+            wave.join()
+            ref.append([int(t) for t in wave.outs[0]])
+        between()
+        sb = DEPLOY_STREAM_BENCH
+        raw = {"tok_s": round(stream_bench.engine_tok_s(
+            eng, sb["streams"], sb["tokens"]), 1),
+            "streams": sb["streams"], "tokens_per_stream": sb["tokens"]}
+    finally:
+        eng.shutdown()
+    return ref, raw
+
+
+def deploy_phase(torch, np, tllama, flash, smi):
+    """The serve deployment layer on the card: the port's cluster with its
+    one GPU; a streaming GPU task yielding CUDA tensors (bit-equal to the
+    same seeded draws here; its fresh worker starts while an in-process
+    ``ContinuousEngine`` of the replica's config makes the reference
+    tokens), and an endless one closed early (the GPU it held takes the
+    next task); ``continuous_llm_app("7b")`` on a one-GPU replica serving
+    ``SERVE_PROMPT_LENS`` greedily, one request at a time, through the
+    handle (push, then pull) and through HTTP, each token equal to the
+    reference's; ``tcb`` and ``dec`` counted in the replica, exactly a
+    layer each for every admission and decode step of its engine;
+    stream_bench's push and pull legs with the RPC sweep on that replica
+    against the reference's raw engine leg; kv_bench's legs 2 and 3
+    (``DEPLOY_CUTS``)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import continuous_llm_app
+    from ray_tpu_torch.tools import kv_bench, stream_bench
+
+    cfg = dataclasses.replace(tllama.PRESETS["7b"], attn_impl="flash")
+    out = {"phase": "deploy", "nvidia_smi": smi, "preset": "7b",
+           "engine": DEPLOY_ENGINE, "cuts": DEPLOY_CUTS}
+    rng = np.random.default_rng(DEPLOY_SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=s).astype(np.int64)
+               for s in SERVE_PROMPT_LENS]
+    n_new = SERVE_NEW_TOKENS
+    torch.cuda.empty_cache()
+    used0 = card_used(torch)   # what earlier phases left on the card
+    out["card_used_at_start_gib"] = used0 / 2**30
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        rt.init()
+        out["cluster_start_s"] = time.perf_counter() - t0
+        res = rt.cluster_resources()
+        check(res.get("GPU") == 1, f"deploy: resources {res}, want GPU 1")
+
+        # 1. a streaming GPU task: CUDA tensors, read once the in-process
+        # reference has its tokens (the task's fresh worker starts
+        # meanwhile), then one closed early
+        gen_fn = rt.remote(num_gpus=1, num_returns="streaming")(
+            deploy_cuda_stream)
+        t0 = time.perf_counter()
+        stream = gen_fn.remote(DEPLOY_STREAM_ITEMS)
+        got = []
+
+        def read_stream():
+            got.extend(rt.get(r, timeout=300) for r in stream)
+
+        counted = read_launches(flash)
+        ref, raw = deploy_reference(torch, tllama, cfg, prompts, n_new,
+                                    read_stream)
+        restore_launches(flash, counted)
+        stream_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        print(f"deploy: the in-process reference done; this process holds "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+        g = torch.Generator(device=DEV).manual_seed(DEPLOY_SEED)
+        want = [torch.randn(DEPLOY_STREAM_SHAPE, generator=g,
+                            device=DEV).to(torch.bfloat16)
+                for _ in range(DEPLOY_STREAM_ITEMS)]
+        equal = [bool(a.device.type == DEV and torch.equal(a, b))
+                 for a, b in zip(got, want)]
+        check(len(got) == DEPLOY_STREAM_ITEMS and all(equal),
+              f"deploy: streamed CUDA tensors {len(got)}, equal {equal}")
+        endless = gen_fn.remote(0, True)
+        it = iter(endless)
+        head = [rt.get(next(it), timeout=300) for _ in range(2)]
+        check(all(torch.equal(a, b) for a, b in zip(head, want)),
+              "deploy: the endless stream's head")
+        endless.close()
+        del it, endless, head, got, want
+        t0 = time.perf_counter()
+        probe = rt.get(rt.remote(num_gpus=1)(cluster_gpu_probe).remote(),
+                       timeout=120)
+        out["gpu_stream"] = {
+            "items": DEPLOY_STREAM_ITEMS, "item_bytes": 2 * int(
+                np.prod(DEPLOY_STREAM_SHAPE)),
+            "wall_s_beside_reference": stream_s, "bit_equal": all(equal),
+            "closed_early_then_gpu_task_s": time.perf_counter() - t0}
+        check(probe["cuda_visible_devices"] not in (None, "")
+              and probe["device_count"] == (DEV == "cuda"),
+              f"deploy: the GPU after the closed stream: {probe}")
+        print(f"deploy: streamed {DEPLOY_STREAM_ITEMS} CUDA tensors, "
+              f"bit-equal, {stream_s:.1f} s from the task's submission (the "
+              f"reference ran meanwhile); closed early", flush=True)
+
+        # 2. the 7b app on a one-GPU replica
+        app = continuous_llm_app(
+            "7b", **DEPLOY_ENGINE, kv_cache_bytes=0, seed=DEPLOY_SEED,
+            max_ongoing_requests=4 * DEPLOY_STREAM_BENCH["streams"],
+            name="CB", device=DEV)
+        check(app._deployment._config.ray_actor_options
+              == ({"num_gpus": 1} if DEV == "cuda" else {}),
+              f"deploy: continuous_llm_app reserved "
+              f"{app._deployment._config.ray_actor_options}")
+        dep = app._deployment
+        app = type(dep)(deploy_llm_class(), dep.name, dep._config).bind(
+            *app._args, **app._kwargs)
+        t0 = time.perf_counter()
+        serve.run(app, name="deploy", route_prefix="/cb",
+                  http_options=serve.HTTPOptions(port=0))
+        out["replica_start_to_ready_s"] = time.perf_counter() - t0
+        h = serve.get_app_handle("deploy")
+        info = h.options(method_name="device_info").remote().result(
+            timeout=120)
+        out["replica"] = info
+        print(f"deploy: replica ready in "
+              f"{out['replica_start_to_ready_s']:.1f} s: {info}", flush=True)
+        check(info["device_count"] == (DEV == "cuda")
+              and (info["cuda_visible_devices"] not in (None, ""))
+              == (DEV == "cuda") and info["device"] == DEV,
+              f"deploy: the replica's devices {info}")
+        port = serve.http_port()
+
+        before = h.options(method_name="launches").remote().result(
+            timeout=120)
+        stats0 = h.options(method_name="engine_stats").remote().result(
+            timeout=120)
+        served = {"push": [], "pull": [], "http": []}
+        for p in prompts:
+            served["push"].append(deploy_handle_request(h, p, n_new))
+        os.environ["RT_STREAM_PULL"] = "1"
+        try:
+            for p in prompts:
+                served["pull"].append(deploy_handle_request(h, p, n_new))
+        finally:
+            del os.environ["RT_STREAM_PULL"]
+        for p in prompts:
+            served["http"].append(deploy_http_request(port, "/cb", p, n_new))
+        after = h.options(method_name="launches").remote().result(
+            timeout=120)
+        stats1 = h.options(method_name="engine_stats").remote().result(
+            timeout=120)
+        launches = {k: after[k] - before[k] for k in after}
+        out["launches"] = launches
+        # a prefill a layer for every admission, a decode step a layer for
+        # every engine decode step, in the replica's engine over the window
+        admitted = stats1["admitted"] - stats0["admitted"]
+        steps = stats1["decode_steps"] - stats0["decode_steps"]
+        out["engine_window"] = {"admitted": admitted, "decode_steps": steps}
+        L = cfg.n_layers
+        check(admitted == 3 * len(prompts)
+              and launches["flash_fwd_tcb"] == L * admitted
+              and launches["flash_fwd_dec"] == L * steps > 0
+              and launches["flash_fwd_simt"] == 0,
+              f"deploy: the replica's launches {launches}, its engine "
+              f"admitted {admitted} requests in {steps} decode steps "
+              f"({L} layers)")
+        check([r["transport"] for r in served["push"]] == ["push"] * len(
+            prompts) and [r["transport"] for r in served["pull"]]
+              == ["pull"] * len(prompts),
+              f"deploy: transports {[r['transport'] for r in served['push']]}"
+              f" {[r['transport'] for r in served['pull']]}")
+        check(all(r["status"] == 200 for r in served["http"]),
+              f"deploy: HTTP statuses {[r['status'] for r in served['http']]}")
+        for leg in served:
+            out[f"ttft_{leg}_s"] = pcts(np, [r["ttft_s"]
+                                             for r in served[leg]])
+        print(f"deploy: served {3 * len(prompts)} requests; replica "
+              f"launches {launches}", flush=True)
+        out["rpcs_per_request"] = {
+            "push": [r["rpcs"] for r in served["push"]],
+            "pull": [r["rpcs"] for r in served["pull"]]}
+
+        # 3. stream_bench's transport legs on this replica, its raw leg here
+        sb = DEPLOY_STREAM_BENCH
+        t0 = time.perf_counter()
+        legs = stream_bench.transport_legs(h, sb["streams"], sb["tokens"],
+                                           sb["sweep"], sb["per_n"])
+        legs_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serve.delete("deploy")
+        del h
+        out["replica_teardown_s"] = deploy_wait_card_free(torch, used0)
+
+        # 4. the served tokens against the reference's, stream_bench's
+        # legs against its raw leg
+        art = {"raw_engine": raw, **legs}
+        stream_bench.summarize(art)
+        art["legs_s"] = legs_s
+        out["stream_bench"] = art
+        print(f"deploy: stream_bench {json.dumps(art)}", flush=True)
+        match = {leg: [r["tokens"] == want for r, want in
+                       zip(served[leg], ref)] for leg in served}
+        out["tokens_equal_in_process"] = match
+        print(f"deploy: tokens equal to the in-process engine's: {match}",
+              flush=True)
+        check(all(all(m) for m in match.values()),
+              f"deploy: served tokens against the in-process engine "
+              f"{match}")
+
+        # 5. kv_bench's legs 2 and 3
+        out["card_free_before_kv_s"] = deploy_wait_card_free(torch, used0)
+        kb = DEPLOY_KV_BENCH
+        max_len = kb["prefix_len"] + 2 * (kb["suffix_len"]
+                                          + kb["max_new"]) + 64
+        t0 = time.perf_counter()
+        kv = kv_bench._serve_legs(
+            "7b", kb["prefix_len"], kb["suffix_len"], kb["max_new"],
+            kb["slots"], kb["stride"], kb["rps"], kb["secs"], kb["rounds"],
+            max_len, torch.device(DEV))
+        kv["legs_s"] = time.perf_counter() - t0
+        out["kv_bench"] = kv
+        check(kv["hits_advancing"] and all(
+            kv["serve"][leg]["completed"] > 0 for leg in kv["serve"]),
+            f"deploy: kv_bench legs {kv['serve']}")
+        out["ttft_warm_vs_cold"] = {
+            "cold_p50_ms": kv["serve"]["cold"]["ttft_p50_ms"],
+            "warm_p50_ms": kv["serve"]["warm"]["ttft_p50_ms"],
+            "collapse_x": kv["ttft_collapse_x_serve"]}
+        serve.shutdown()
+    finally:
+        if rt.is_initialized():
+            try:
+                serve.shutdown()
+            finally:
+                rt.shutdown()
+    out["phase_s"] = time.perf_counter() - t_phase
+    sb = out["stream_bench"]
+    print(f"deploy ({smi}): cluster start {out['cluster_start_s']:.2f} s, "
+          f"replica start to ready {out['replica_start_to_ready_s']:.1f} s "
+          f"on {out['replica']['device_name']} (CUDA_VISIBLE_DEVICES="
+          f"{out['replica']['cuda_visible_devices']}); TTFT p50/p99 handle "
+          f"{out['ttft_push_s']['p50'] * 1e3:.1f}/"
+          f"{out['ttft_push_s']['p99'] * 1e3:.1f} ms, HTTP "
+          f"{out['ttft_http_s']['p50'] * 1e3:.1f}/"
+          f"{out['ttft_http_s']['p99'] * 1e3:.1f} ms; push "
+          f"{sb['push']['tok_s']} tok/s against the raw engine's "
+          f"{sb['raw_engine']['tok_s']} (push_vs_raw_ratio "
+          f"{sb['push_vs_raw_ratio']}); RPCs a request by tokens: push "
+          f"{[(s['tokens'], s['rpcs_mean']) for s in sb['push']['rpc_scaling']]}"
+          f", pull "
+          f"{[(s['tokens'], s['rpcs_mean']) for s in sb['pull']['rpc_scaling']]}"
+          f"; TTFT warm {out['ttft_warm_vs_cold']['warm_p50_ms']} ms against "
+          f"cold {out['ttft_warm_vs_cold']['cold_p50_ms']} ms; replica "
+          f"launches tcb {out['launches']['flash_fwd_tcb']}, dec "
+          f"{out['launches']['flash_fwd_dec']}; phase "
+          f"{out['phase_s']:.1f} s", flush=True)
+    emit(out)
+    return out["launches"]
+
+
 PHASES = ("kernel", "bwd", "integration", "grad", "serve", "llm", "spec",
           "moe", "train", "driver", "moe_train", "rlhf", "anakin", "rl",
-          "vit", "mesh", "seqpipe", "tools", "cluster")
+          "vit", "mesh", "seqpipe", "tools", "cluster",
+          "deploy")
 
 
 def kernel_entry(name, source, replaces, launches, head, part=None,
@@ -6193,6 +6630,8 @@ def main(argv=None) -> int:
         launches["tools"] = tools_phase(torch, np, tllama, flash, smi)
     if "cluster" in only:
         launches["cluster"] = cluster_phase(torch, np, tllama, flash, smi)
+    if "deploy" in only:
+        launches["deploy"] = deploy_phase(torch, np, tllama, flash, smi)
     if args.only is not None:
         print(json.dumps({"partial_run": sorted(only)}), flush=True)
         return 0

@@ -18,6 +18,7 @@ from ray_tpu_torch._private.ids import ActorID, JobID, NodeID, ObjectID, TaskID 
 from ray_tpu_torch.core.actor import ActorClass, ActorHandle, method  # noqa: F401
 from ray_tpu_torch.core.api import RemoteFunction, remote  # noqa: F401
 from ray_tpu_torch.core.object_ref import ObjectRef  # noqa: F401
+from ray_tpu_torch.cluster.worker_core import ObjectRefGenerator  # noqa: F401
 from ray_tpu_torch.core.worker import (  # noqa: F401
     global_worker,
     init,

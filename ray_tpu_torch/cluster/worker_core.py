@@ -44,6 +44,7 @@ from ray_tpu_torch.core.task_spec import (
     validate_options,
 )
 from ray_tpu_torch.core.worker import global_worker
+from ray_tpu_torch.cluster import stream as rt_stream
 from ray_tpu_torch.cluster.object_store import PlasmaStore
 from ray_tpu_torch.runtime_env import prepare_runtime_env
 from ray_tpu_torch.util import chaos as _chaos
@@ -55,6 +56,7 @@ from ray_tpu_torch.util.placement_group import (
 )
 from ray_tpu_torch.util.tqdm_rt import maybe_render
 from ray_tpu_torch.cluster.rpc import (
+    ChannelBroken,
     ConnectionLost,
     ConnectionPool,
     EventLoopThread,
@@ -208,6 +210,91 @@ class _MemoryStore:
             self._data.pop(oid_hex, None)
 
 
+class _StreamState:
+    """Owner-side state of one streaming-generator task (reference:
+    ``ObjectRefStream``, ``core_worker/task_manager.h:96``)."""
+
+    def __init__(self, task_id_hex: str, owner_address: str,
+                 max_buffer: int, loop: asyncio.AbstractEventLoop):
+        self.task_id_hex = task_id_hex
+        self.owner_address = owner_address
+        self.max_buffer = max_buffer
+        self.produced = 0
+        self.consumed = 0
+        self.done = False
+        self.closed = False                    # consumer abandoned the stream
+        self.error_payload: Optional[bytes] = None
+        self._event = asyncio.Event()          # new item / done (loop-affine)
+        self._space = asyncio.Event()          # consumer caught up
+        self._space.set()
+        self.loop = loop
+
+    def notify(self) -> None:
+        self._event.set()
+        if (self.done or self.closed
+                or self.produced - self.consumed <= self.max_buffer):
+            self._space.set()  # done/closed also frees a blocked producer ack
+        else:
+            self._space.clear()
+
+
+class ObjectRefGenerator:
+    """Iterator of ObjectRefs for ``num_returns="streaming"`` tasks
+    (reference: ``StreamingObjectRefGenerator``, ``_raylet.pyx:267``).
+    Yields per-item refs in production order; iteration ends when the
+    generator task completes. Consuming an item releases backpressure."""
+
+    def __init__(self, backend: "ClusterBackend", state: _StreamState):
+        self._backend = backend
+        self._state = state
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> ObjectRef:
+        st = self._state
+
+        async def _wait_next():
+            while True:
+                if st.consumed < st.produced:
+                    idx = st.consumed
+                    st.consumed += 1
+                    st.notify()
+                    return idx
+                if st.done or st.closed:
+                    return None
+                st._event.clear()
+                await st._event.wait()
+
+        idx = self._backend.io.run(_wait_next())
+        if idx is None:
+            raise StopIteration
+        task_id = TaskID.from_hex(st.task_id_hex)
+        return ObjectRef(ObjectID.for_return(task_id, idx),
+                         owner=st.owner_address)
+
+    def completed(self) -> bool:
+        return self._state.done and self._state.consumed >= self._state.produced
+
+    def close(self) -> None:
+        """Abandon the stream: releases the producer's backpressure ack so
+        the executor worker stops instead of blocking forever, and drops the
+        owner-side stream state. Called automatically on GC."""
+        st = self._state
+        if st.closed:
+            return
+        st.closed = True
+        self._backend._streams.pop(st.task_id_hex, None)
+        self._backend.loop.call_soon_threadsafe(st.notify)
+
+    def __del__(self):
+        try:
+            if not self.completed():
+                self.close()
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
+
+
 class _ActorConn:
     """Ordered submission pipe to one actor (per-caller FIFO)."""
 
@@ -244,6 +331,16 @@ class ClusterBackend(RuntimeBackend):
         self.memory_store = _MemoryStore(self.loop)
         self.server = RpcServer(self.loop)
         self.server.register("get_object", self._rpc_get_object)
+        self.server.register("stream_item", self._rpc_stream_item)
+        # push-stream subscription (cluster/stream.py): a consumer binds a
+        # one-way push channel on its existing connection to this process
+        self.server.register("stream_subscribe", self._rpc_stream_subscribe)
+        # streaming-generator push handshake: the EXECUTING worker
+        # announces its stream source; this owner subscribes and drains
+        # items over one-way frames instead of one acked RPC per item
+        self.server.register("stream_begin", self._rpc_stream_begin)
+        # task_id_hex -> _StreamState for in-flight streaming generators
+        self._streams: Dict[str, _StreamState] = {}
         self._pool = ConnectionPool(peer_id=f"{role}:{job_id.hex()}")
         self._gcs: Optional[RpcClient] = None
         self._raylet: Optional[RpcClient] = None
@@ -795,6 +892,159 @@ class ClusterBackend(RuntimeBackend):
             return {"in_plasma": True}
         return {"not_found": True}
 
+    async def _rpc_stream_subscribe(self, p):
+        return await rt_stream.handle_subscribe(self, p)
+
+    # generator streams with a hard small producer-lag bound stay on the
+    # acked per-item path: push batching (frame window + producer pump)
+    # would loosen the bound `_stream_max_buffer` promises
+    _GEN_PUSH_MIN_BUFFER = 16
+
+    async def _rpc_stream_begin(self, p):
+        """Streaming-generator push handshake: the executor worker registered stream ``sid``; if this
+        owner still wants the stream and push is enabled, subscribe a
+        one-way frame channel back to the worker and drain it from a
+        background task. The legacy acked ``stream_item`` path remains
+        the fallback — the worker reverts to it (and redelivers the
+        unacked tail, idempotent by index) whenever the channel breaks
+        or this reply says no."""
+        st = self._streams.get(p["task_id"])
+        if st is None or st.closed:
+            return {"push": False, "gone": True}
+        if (not rt_stream.push_enabled()
+                or st.max_buffer < self._GEN_PUSH_MIN_BUFFER):
+            return {"push": False}
+        # max_buffer is the consumer's MEMORY bound, so it must cover the
+        # whole pipeline, not gate each stage independently: half goes to
+        # the credit window (channel buffer + producer replay), half to
+        # the stored-but-unconsumed gate in the drain task — the producer
+        # pump adds window//4 on top, keeping the total within ~1.1x the
+        # bound the acked per-item path promises
+        window = max(2, st.max_buffer // 2)
+        gate = max(1, st.max_buffer - window)
+        try:
+            ch = await rt_stream.subscribe(self, p["address"], p["sid"],
+                                           window=window)
+        except Exception:  # noqa: BLE001 — transport hiccup: stay on pull
+            return {"push": False}
+        if ch is None:
+            return {"push": False}
+        spawn_task(self._drain_generator_push(st, ch, p["task_id"], gate))
+        return {"push": True, "window": window}
+
+    async def _drain_generator_push(self, st: "_StreamState", ch,
+                                    task_id_hex: str, gate: int) -> None:
+        """Owner half of a pushed generator stream: decode each frame
+        ``(index, payload|None)`` into the per-index object slot (the
+        exact stores ``_rpc_stream_item`` would have made; plasma items
+        were sealed node-side and travel as index-only markers), bounded
+        by the same ``max_buffer`` consumer-lag wait. Exits on the done
+        frame, on consumer close, on a broken channel (the worker detects
+        the stop through the binding and resends the unacked tail over
+        the acked path), and on ``st.done`` — when the producer settles
+        through the acked fallback no done frame ever arrives, so the
+        take must be raced against the stream-state event or this task
+        (and the channel endpoint) would park in ``take`` forever."""
+        task_id = TaskID.from_hex(task_id_hex)
+        take_fut: Optional[asyncio.Future] = None
+
+        def _store(item) -> None:
+            idx, payload = item
+            if payload is not None:
+                self.memory_store.put(
+                    ObjectID.for_return(task_id, idx).hex(), payload)
+            st.produced = max(st.produced, idx + 1)
+            st.notify()
+
+        def _flush_take() -> None:
+            # a completed take holds an item the channel already
+            # CREDITED as consumed — the producer's fallback excludes
+            # acked items from the redelivered tail, so dropping it
+            # here would hole the stream permanently
+            nonlocal take_fut
+            if take_fut is not None and take_fut.done():
+                try:
+                    item, done = take_fut.result()
+                except Exception:  # noqa: BLE001 — broken channel /
+                    pass           # error frame: nothing was taken
+                else:
+                    if not done and item is not None:
+                        _store(item)
+                take_fut = None
+
+        try:
+            while True:
+                if st.done or st.closed:
+                    # settled via the task reply (the unacked tail was
+                    # redelivered by index) or consumer abandon: flush
+                    # any credited in-flight take, closed credit stops
+                    # the producer
+                    _flush_take()
+                    ch.close()
+                    return
+                while (st.produced - st.consumed > gate
+                       and not st.done and not st.closed):
+                    st._space.clear()
+                    await st._space.wait()
+                if st.done or st.closed:
+                    _flush_take()
+                    ch.close()
+                    return
+                if take_fut is None:
+                    take_fut = asyncio.ensure_future(
+                        rt_stream.take_decoded(self, ch))
+                st._event.clear()
+                waiter = asyncio.ensure_future(st._event.wait())
+                await asyncio.wait({take_fut, waiter},
+                                   return_when=asyncio.FIRST_COMPLETED)
+                waiter.cancel()
+                if not take_fut.done():
+                    continue  # stream-state change: loop re-checks done
+                item, done = take_fut.result()
+                take_fut = None
+                if done:
+                    return
+                _store(item)
+        except ChannelBroken:
+            try:
+                ch.close()
+            except Exception:  # noqa: BLE001 — channel already dead
+                pass
+        except Exception:  # noqa: BLE001 — decode failure: the worker's
+            # binding sees the closed channel and falls back to the
+            # acked path, which redelivers everything unacked
+            try:
+                ch.close()
+            except Exception:  # noqa: BLE001
+                pass
+        finally:
+            if take_fut is not None and not take_fut.done():
+                take_fut.cancel()
+
+    async def _rpc_stream_item(self, p):
+        """Executor pushes one generator item (reference: item reporting,
+        ``_raylet.pyx:1090``). Inline payloads land in our memory store;
+        plasma items were already sealed node-side. The ack is withheld
+        while the consumer lags more than max_buffer items — the executor
+        awaits it before producing the next item, which IS the backpressure."""
+        st = self._streams.get(p["task_id"])
+        if st is None:
+            return {"ok": False, "gone": True}  # stream cancelled/unknown
+        task_id = TaskID.from_hex(p["task_id"])
+        idx = p["index"]
+        oid_hex = ObjectID.for_return(task_id, idx).hex()
+        if "payload" in p:
+            self.memory_store.put(oid_hex, p["payload"])
+        st.produced = max(st.produced, idx + 1)
+        st.notify()
+        while (st.produced - st.consumed > st.max_buffer
+               and not st.done and not st.closed):
+            st._space.clear()
+            await st._space.wait()
+        if st.closed:
+            return {"ok": False, "gone": True}  # tell the producer to stop
+        return {"ok": True}
+
     def free_objects(self, refs: Sequence[ObjectRef]) -> None:
         ledger = (object_ledger.get_ledger()
                   if object_ledger.enabled() else None)
@@ -932,10 +1182,8 @@ class ClusterBackend(RuntimeBackend):
         fid = self._export("fn", fn)
         task_id = TaskID.for_task(self.job_id)
         if num_returns == "streaming":
-            raise NotImplementedError(
-                "streaming generators (num_returns='streaming') are not "
-                "ported yet: they wait for the port's stream transport, "
-                "the first of the runtime's later slices (R1)")
+            return self._submit_streaming(fn, options, args, kwargs, req,
+                                          strategy, pg_info, fid, task_id)
         refs = [ObjectRef(ObjectID.for_return(task_id, i), owner=self.address)
                 for i in range(num_returns)]
         for r in refs:
@@ -961,6 +1209,104 @@ class ClusterBackend(RuntimeBackend):
         self.io.spawn(self._submit_and_collect(
             payload, refs, t_entry=tracing.take_submit_entry()))
         return refs[0] if num_returns == 1 else refs
+
+    def _submit_streaming(self, fn, options, args, kwargs, req, strategy,
+                          pg_info, fid, task_id) -> "ObjectRefGenerator":
+        """Streaming-generator submission (``num_returns="streaming"``,
+        reference: ``remote_function.py:333`` + ``task_manager.h:96``)."""
+        state = _StreamState(task_id.hex(), self.address,
+                             max_buffer=options.get("_stream_max_buffer", 16),
+                             loop=self.loop)
+        self._streams[task_id.hex()] = state
+        payload = {
+            "task_id": task_id.hex(),
+            "job_id": self.job_id.hex(),
+            "fn_id": fid,
+            "fn_name": getattr(fn, "__name__", "anonymous"),
+            "args": [self._serialize_arg(a) for a in args],
+            "kwargs": {k: self._serialize_arg(v) for k, v in kwargs.items()},
+            "num_returns": "streaming",
+            "resources": req.to_dict(),
+            "strategy": strategy,
+            "pg": pg_info,
+            "owner": self.address,
+            "max_retries": 0,  # raylet-side dedup off; owner drives retries
+            "runtime_env": self._prepare_env(options),
+            "trace": _trace_ctx(),  # span + phases land via the raylet
+        }
+        self._stamp_overload_options(payload, options)
+
+        async def _run():
+            # A stream that produced NOTHING yet is safe to retry whole
+            # (transient worker-spawn failures under load); once items have
+            # been consumed, a partial stream must not silently re-run.
+            retries = get_config().task_max_retries_default
+            bp_attempts = 0
+            bp_deadline = (time.monotonic() + payload["deadline_s"]
+                           if payload.get("deadline_s") else None)
+            while True:
+                try:
+                    target = self._raylet
+                    if payload.get("pg") is not None:
+                        target = await self._pg_bundle_raylet(payload["pg"])
+                    reply = await target.call("submit_task", payload)
+                except Exception as e:
+                    reply = {"error": "submit_failed", "message": repr(e)}
+                if reply.get("error") == "backpressure":
+                    if (bp_deadline is not None
+                            and time.monotonic() >= bp_deadline):
+                        # deadline holds pre-enqueue: shed instead of
+                        # blocking past the budget
+                        msg, cause = self._deadline_shed(payload, "stream")
+                        reply = {"error": "deadline_exceeded",
+                                 "message": msg, "cause": cause}
+                    elif (payload.get("on_overload") != "fail"
+                            and not state.closed):
+                        bp_attempts += 1
+                        await self._backpressure_pause(bp_attempts)
+                        continue
+                if (reply.get("error") in ("worker_crashed", "bundle_gone",
+                                           "submit_failed", "oom_killed")
+                        and state.produced == 0 and not state.closed
+                        and retries > 0):
+                    retries -= 1
+                    _observe_retry()
+                    continue
+                break
+            if reply.get("error"):
+                if reply["error"] == "backpressure":
+                    err: Exception = self._backpressure_error(
+                        reply, payload["fn_name"])
+                elif reply["error"] == "deadline_exceeded":
+                    err = SchedulingTimeoutError(
+                        f"streaming task {payload['fn_name']} shed: "
+                        f"{reply.get('message', reply['error'])}",
+                        cause=reply.get("cause"))
+                else:
+                    err = WorkerCrashedError(
+                        f"streaming task {payload['fn_name']} failed: "
+                        f"{reply.get('message', reply['error'])}")
+                blob = self.serde.serialize(err).to_bytes()
+                idx = state.produced
+                self.memory_store.put(
+                    ObjectID.for_return(task_id, idx).hex(), blob)
+                state.produced = idx + 1
+            elif reply.get("stream_error") is not None:
+                idx = state.produced
+                self.memory_store.put(
+                    ObjectID.for_return(task_id, idx).hex(),
+                    reply["stream_error"])
+                state.produced = idx + 1
+            state.done = True
+            state.notify()
+            # state is kept for iteration; dropped when consumed or replaced
+            if len(self._streams) > 1024:
+                for k in [k for k, s in self._streams.items()
+                          if s.done and s.consumed >= s.produced][:512]:
+                    self._streams.pop(k, None)
+
+        self.io.spawn(_run())
+        return ObjectRefGenerator(self, state)
 
     async def _submit_and_collect(self, payload, refs: List[ObjectRef],
                                   t_entry: Optional[float] = None) -> None:

@@ -20,16 +20,175 @@ import os
 import sys
 import threading
 import traceback
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 from ray_tpu_torch._private.config import get_config
 from ray_tpu_torch._private.ids import ActorID, JobID, ObjectID, TaskID
+from ray_tpu_torch.cluster import stream as rt_stream
 from ray_tpu_torch.cluster.rpc import RpcClient
 from ray_tpu_torch.cluster.worker_core import ClusterBackend
 from ray_tpu_torch.core.object_ref import ObjectRef
 from ray_tpu_torch.exceptions import TaskError
 from ray_tpu_torch.util import chaos as C
+
+
+class _GenStreamPump:
+    """Producer pump for the streaming-generator push path: the task
+    executor thread feeds ``(index, payload|None)`` items, the
+    cluster/stream.py push binding drains them on the io loop (the
+    ``async take`` pump protocol). Bounded so the generator cannot run
+    arbitrarily far ahead of the credit window."""
+
+    def __init__(self, loop, maxsize: int):
+        self._loop = loop
+        self._cond = threading.Condition()
+        self._items: deque = deque()  # rt: guarded-by(_cond)
+        self._done = False  # rt: guarded-by(_cond)
+        self._stopped = False  # rt: guarded-by(_cond)
+        self._maxsize = max(1, maxsize)
+        self._avail = asyncio.Event()  # loop-affine
+
+    # -- task thread side --------------------------------------------------
+    def feed(self, item: Tuple) -> bool:
+        """Block while full; False once the binding detached (broken
+        channel / consumer stop) — the caller reverts to the acked path."""
+        with self._cond:
+            while len(self._items) >= self._maxsize and not self._stopped:
+                self._cond.wait(0.2)
+            if self._stopped:
+                return False
+            self._items.append(item)
+        self._wake()
+        return True
+
+    def feed_done(self) -> None:
+        with self._cond:
+            self._done = True
+        self._wake()
+
+    def drain_unsent(self) -> List[Tuple]:
+        """Items fed but never taken by the binding (fallback prologue)."""
+        with self._cond:
+            out = list(self._items)
+            self._items.clear()
+            return out
+
+    @property
+    def stopped(self) -> bool:
+        with self._cond:
+            return self._stopped
+
+    # -- binding side ------------------------------------------------------
+    def binding_stopped(self) -> None:
+        """Called by the push binding when it detaches (any thread)."""
+        with self._cond:
+            self._stopped = True
+            self._cond.notify_all()
+        self._wake()
+
+    def close(self) -> None:
+        self.binding_stopped()
+
+    def _wake(self) -> None:
+        try:
+            self._loop.call_soon_threadsafe(self._avail.set)
+        except RuntimeError:
+            pass  # loop closed at teardown
+
+    async def take(self, max_items: int) -> Tuple[List[Any], bool]:
+        while True:
+            with self._cond:
+                if self._items:
+                    out = []
+                    while self._items and len(out) < max_items:
+                        out.append(self._items.popleft())
+                    done = self._done and not self._items
+                    self._cond.notify_all()
+                    return out, done
+                if self._done:
+                    return [], True
+                if self._stopped:
+                    # binding is detaching: hand control back so its
+                    # pump loop can observe _stop and finish
+                    return [], False
+                self._avail.clear()
+            await self._avail.wait()
+
+
+class _GenStreamPusher:
+    """Push-transport driver for one streaming-generator task: registers
+    the source, announces it to the owner (``stream_begin`` — the owner
+    subscribes back over its pooled connection), and feeds items through
+    the pump. On ANY detachment the worker resends the unacked tail over
+    the legacy acked ``stream_item`` path — redelivery is idempotent
+    (the owner stores items by index), so the stream is token-exact
+    through the fallback."""
+
+    def __init__(self, backend, task_id_hex: str, owner: str):
+        self.backend = backend
+        self.sid = f"g:{task_id_hex}"
+        self.task_id_hex = task_id_hex
+        self.owner = owner
+        self.pump: Optional[_GenStreamPump] = None
+
+    def begin(self) -> bool:
+        # provisional pump: resized to the owner's window on acceptance
+        self.pump = _GenStreamPump(self.backend.loop,
+                                   rt_stream.stream_window() // 4)
+        rt_stream.register_source(self.sid, self.pump)
+        try:
+            reply = self.backend.io.run(self._announce(), timeout=30.0)
+        except Exception:  # noqa: BLE001 — owner unreachable: acked path
+            reply = None
+        if not (reply and reply.get("push")):
+            rt_stream.unregister_source(self.sid)
+            return False
+        # producer-side lag bound: pump buffer rides ON TOP of the
+        # credit window, so keep it a fraction of it
+        self.pump._maxsize = max(1, int(reply.get("window") or 16) // 4)
+        return True
+
+    async def _announce(self):
+        client = await self.backend._pool.get(self.owner)
+        return await client.call(
+            "stream_begin",
+            {"task_id": self.task_id_hex, "sid": self.sid,
+             "address": self.backend.server.address})
+
+    @property
+    def active(self) -> bool:
+        return self.pump is not None and not self.pump.stopped
+
+    def feed(self, index: int, payload: Optional[bytes]) -> bool:
+        return self.pump.feed((index, payload))
+
+    def settle(self, finish: bool) -> Optional[List[Tuple]]:
+        """Settle the push stream: ``finish=True`` feeds the done marker
+        first (generator exhausted/raised). Returns None when the stream
+        completed over push (every item acked), else the (index,
+        payload) tail to redeliver over the acked path — pushed-but-
+        unacked replay plus anything still parked in the pump."""
+        if finish:
+            self.pump.feed_done()
+        else:
+            self.pump.binding_stopped()
+        try:
+            tail = self.backend.io.run(
+                rt_stream.settle_source(self.sid), timeout=90.0)
+        except Exception:  # noqa: BLE001 — loop wedged: we cannot learn
+            # what was acked, so resend everything still replayable (racy
+            # off-loop snapshot; over-delivery is idempotent by index,
+            # dropping pushed-but-unacked items would hole the stream)
+            tail = rt_stream.peek_unacked(self.sid)
+            rt_stream.unregister_source(self.sid)
+        if tail is None:
+            return None
+        pending = {idx: pl for idx, pl in tail}
+        for idx, pl in self.pump.drain_unsent():
+            pending[idx] = pl
+        return sorted(pending.items())
 
 
 class WorkerProcess:
@@ -244,6 +403,7 @@ class WorkerProcess:
         worker.job_id = self.backend.job_id
         token = worker.enter_task_context(task_id)
         self.backend._current_task_id = p["task_id"]
+        streaming = p["num_returns"] == "streaming"
         from ray_tpu_torch.util import tracing
 
         traced = p.get("trace") is not None  # phase stamps ride the span
@@ -267,6 +427,16 @@ class WorkerProcess:
             t1 = _time.perf_counter() if traced else 0.0
             result = fn(*args, **kwargs)
             t2 = _time.perf_counter() if traced else 0.0
+            if streaming:
+                reply = self._stream_results(result, task_id, p)
+                if traced:
+                    # execute covers driving the generator (production +
+                    # per-item pushes); items store as they stream, so
+                    # there is no separate result_store phase
+                    reply["worker_phases"] = {
+                        "arg_fetch": t1 - t0,
+                        "execute": _time.perf_counter() - t2}
+                return reply
             returns = self._pack_returns(result, task_id, p["num_returns"])
             reply = {"returns": returns}
             if traced:
@@ -280,7 +450,11 @@ class WorkerProcess:
             # origin worker already emitted the task_error event; emitting
             # again would attribute one upstream error to every
             # downstream consumer
-            reply = {"returns": self._error_returns(e, p["num_returns"])}
+            if streaming:
+                reply = {"streaming_done": 0,
+                         "stream_error": self.backend.serde.serialize(e).to_bytes()}
+            else:
+                reply = {"returns": self._error_returns(e, p["num_returns"])}
             if traced:
                 reply["worker_phases"] = _failure_phases()
             return reply
@@ -289,7 +463,11 @@ class WorkerProcess:
             self._failure_event(f"{type(e).__name__}: {e}",
                                 task_id=p["task_id"], name=p["fn_name"])
             err = TaskError(p["fn_name"], e)
-            reply = {"returns": self._error_returns(err, p["num_returns"])}
+            if streaming:
+                reply = {"streaming_done": 0,
+                         "stream_error": self.backend.serde.serialize(err).to_bytes()}
+            else:
+                reply = {"returns": self._error_returns(err, p["num_returns"])}
             if traced:
                 reply["worker_phases"] = _failure_phases()
             return reply
@@ -297,6 +475,95 @@ class WorkerProcess:
             tracing.deactivate(trace_token)
             self.backend._current_task_id = None
             worker.exit_task_context(token)
+
+    def _stream_results(self, result, task_id: TaskID, p) -> Dict:
+        """Drive a generator task. Default transport is PUSH
+        (cluster/stream.py): one
+        ``stream_begin`` handshake binds the owner to this worker's
+        stream source, then every item rides a one-way credit-windowed
+        frame — O(1) RPCs per stream instead of one acked ``stream_item``
+        RPC per item. The acked per-item path (reference: item reporting
+        ``_raylet.pyx:1090``) remains: primary when push is off / the
+        owner declines (tiny ``_stream_max_buffer`` bounds want per-item
+        acks), and the FALLBACK when a push channel breaks — the unacked
+        tail is redelivered through it by index, so the stream stays
+        token-exact across the switch. Small items ride the frame/RPC;
+        large go to plasma with only the index notification inline."""
+        it = iter(result)
+        small_limit = get_config().max_direct_call_object_size
+        owner = p["owner"]
+        pusher: Optional[_GenStreamPusher] = None
+        if rt_stream.push_enabled():
+            pusher = _GenStreamPusher(self.backend, p["task_id"], owner)
+            if not pusher.begin():
+                pusher = None
+
+        async def _send(msg):
+            client = await self.backend._pool.get(owner)
+            return await client.call("stream_item", msg)
+
+        def _legacy_send(index: int, payload: Optional[bytes]) -> Dict:
+            msg = {"task_id": p["task_id"], "index": index}
+            if payload is not None:
+                msg["payload"] = payload
+            return self.backend.io.run(_send(msg))
+
+        def _settle_push(finish: bool) -> bool:
+            """Settle/fall back; returns False when the owner is gone."""
+            nonlocal pusher
+            tail = pusher.settle(finish)
+            pusher = None
+            for idx, pl in tail or ():
+                if _legacy_send(idx, pl).get("gone"):
+                    return False
+            return True
+
+        i = 0
+        while True:
+            try:
+                v = next(it)
+            except StopIteration:
+                if pusher is not None:
+                    _settle_push(finish=True)
+                return {"streaming_done": i}
+            # rt: lint-allow(except-discipline) error transport: the
+            # user generator's failure ships to the owner as stream_error
+            except BaseException as e:  # noqa: BLE001
+                traceback.print_exc()
+                if not isinstance(e, TaskError):  # origin only
+                    self._failure_event(
+                        f"{type(e).__name__}: {e}", task_id=p["task_id"],
+                        name=p["fn_name"])
+                err = TaskError(p["fn_name"], e)
+                if pusher is not None:
+                    # the error lands at index `produced` on the owner:
+                    # every pushed item must be delivered BEFORE the
+                    # reply carries the error, or it would overwrite a
+                    # lost item's slot
+                    _settle_push(finish=True)
+                return {"streaming_done": i,
+                        "stream_error": self.backend.serde.serialize(err).to_bytes()}
+            payload = self.backend.serde.serialize(v).to_bytes()
+            inline: Optional[bytes] = None
+            if len(payload) > small_limit:
+                oid = ObjectID.for_return(task_id, i)
+                self.backend.plasma.write_whole(oid, payload)
+                self.backend.io.run(self.backend._raylet.call(
+                    "seal_object", {"oid": oid.hex(), "size": len(payload)}))
+            else:
+                inline = payload
+            if pusher is not None:
+                if pusher.feed(i, inline):
+                    i += 1
+                    continue
+                # binding detached (broken channel / consumer stop):
+                # redeliver the unacked tail and continue on acks
+                if not _settle_push(finish=False):
+                    return {"streaming_done": i}
+            ack = _legacy_send(i, inline)
+            if ack.get("gone"):
+                return {"streaming_done": i}  # consumer went away: stop
+            i += 1
 
     # ---- actors -------------------------------------------------------------
     async def rpc_create_actor(self, p):

@@ -290,10 +290,9 @@ class LocalBackend(RuntimeBackend):
         num_returns = options.get("num_returns", 1)
         task_id = TaskID.for_task(self.job_id)
         if num_returns == "streaming":
-            raise NotImplementedError(
-                "streaming generators (num_returns='streaming') are not "
-                "ported yet: they wait for the port's stream transport, "
-                "the first of the runtime's later slices (R1)")
+            return self._submit_streaming(
+                fn, args, kwargs, task_id,
+                options.get("_stream_max_buffer", 16))
         refs = [ObjectRef(ObjectID.for_return(task_id, i)) for i in range(num_returns)]
 
         def run():
@@ -306,6 +305,67 @@ class LocalBackend(RuntimeBackend):
         t.start()
         self._register_resources(req)
         return refs[0] if num_returns == 1 else refs
+
+    def _submit_streaming(self, fn, args, kwargs, task_id, max_buffer: int):
+        """Thread-driven ``num_returns="streaming"``: items land in the local
+        store as produced; a bounded queue is the backpressure."""
+        import queue as _q
+
+        out: _q.Queue = _q.Queue(maxsize=max(1, max_buffer))
+        store = self._store
+        name = getattr(fn, "__name__", "generator")
+        closed = threading.Event()
+
+        def _put(item) -> bool:
+            """Bounded put that aborts when the consumer abandoned us."""
+            while not closed.is_set():
+                try:
+                    out.put(item, timeout=0.2)
+                    return True
+                except _q.Full:
+                    continue
+            return False
+
+        def run():
+            i = 0
+            try:
+                rargs = [self._resolve(a) for a in args]
+                rkwargs = {k: self._resolve(v) for k, v in kwargs.items()}
+                for v in fn(*rargs, **rkwargs):
+                    ref = ObjectRef(ObjectID.for_return(task_id, i))
+                    store.put(ref.id(), v)
+                    if not _put(ref):
+                        return  # abandoned: stop producing
+                    i += 1
+            except BaseException as e:  # noqa: BLE001
+                err = e if isinstance(e, TaskError) else TaskError(name, e)
+                ref = ObjectRef(ObjectID.for_return(task_id, i))
+                store.put(ref.id(), err)
+                _put(ref)
+            _put(None)
+
+        threading.Thread(target=run, daemon=True,
+                         name=f"rt-stream-{name}").start()
+
+        class _LocalRefGenerator:
+            def __iter__(self):
+                return self
+
+            def __next__(self):
+                if closed.is_set():
+                    raise StopIteration
+                ref = out.get()
+                if ref is None:
+                    raise StopIteration
+                return ref
+
+            def close(self):
+                closed.set()
+
+            def __del__(self):
+                closed.set()
+
+        return _LocalRefGenerator()
 
     def _register_resources(self, req: ResourceSet) -> None:
         # Accounting only (see module docstring); release is immediate.

@@ -14,14 +14,18 @@ static-batch control, and the Poisson-arrival load driver.
 Both classes build their preset with ``attn_impl="flash"``: the hand-
 written CUDA kernels on the card, their plain versions on the CPU.
 
-Where the JAX package writes to ``ray_tpu.serve.obs`` or its cluster (slot
-occupancy, kv-cache counters, the request's kv span, the ``@memkv/``
-snapshot push, batch formation), the port calls a :class:`ServeHooks`
-object passed in; its methods do nothing by default. A hooks object is
-pickled into the replica with the class's arguments, so it must be an
-instance of a module-level class. The app builders (``continuous_llm_app``,
-``static_llm_app``, ``cb_vs_static_load``) need a serve runtime and are
-not ported.
+The classes report (slot occupancy, kv-cache counters, the request's kv
+span, the ``@memkv/`` snapshot push, batch formation) through a
+:class:`ServeHooks` object. The default, :class:`ObsHooks`, writes the
+port's own ``serve.obs`` series and spans and its cluster's KV, as the JAX
+package's classes write theirs; a caller may pass another (the base class
+does nothing). A hooks object is pickled into the replica with the class's
+arguments, so it must be an instance of a module-level class.
+
+The app functions (``continuous_llm_app``, ``static_llm_app``) deploy the
+classes through ``ray_tpu_torch.serve``; on ``device="cuda"`` (the
+default) each replica reserves one GPU. ``cb_vs_static_load`` drives both
+under equal Poisson load over the proxy fleet.
 """
 
 from __future__ import annotations
@@ -45,8 +49,9 @@ from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.serving import ContinuousEngine
 from ray_tpu_torch.serve.batching import batch as _serve_batch
 
-__all__ = ["ContinuousLLM", "StaticLLM", "ServeHooks", "poisson_load",
-           "http_token_request"]
+__all__ = ["ContinuousLLM", "StaticLLM", "ServeHooks", "ObsHooks",
+           "cb_vs_static_load", "continuous_llm_app", "static_llm_app",
+           "poisson_load", "http_token_request"]
 
 
 class ServeHooks:
@@ -84,6 +89,62 @@ class ServeHooks:
         """After every ``@batch`` flush of the static control."""
 
 
+class ObsHooks(ServeHooks):
+    """The default hooks: the port's ``serve.obs`` series and spans, and
+    the ``@memkv/`` snapshot in its cluster's KV, written as the JAX
+    package's ContinuousLLM writes its own (``ray_tpu/serve/llm.py``).
+    ``@batch`` flushes reach ``serve.obs`` from the batcher itself."""
+
+    def on_tick(self, name: str, active: int, slots: int) -> None:
+        from ray_tpu_torch.serve import obs
+
+        # the continuous-batching yardstick: fused rows per decode step
+        # and the fraction of the slot budget they fill
+        tags = {"fn": f"cb:{name}"}
+        obs.batch_size_hist().observe(active, tags=tags)
+        obs.batch_occupancy_hist().observe(active / max(1, slots), tags=tags)
+        obs.cb_slots_gauge().set(active, tags={"deployment": name})
+
+    def kv_cache(self, name: str, hits: int, misses: int, evictions: int,
+                 nbytes: int) -> None:
+        from ray_tpu_torch.serve import obs
+
+        tags = {"deployment": name}
+        for counter, n in ((obs.kv_cache_hits, hits),
+                           (obs.kv_cache_misses, misses),
+                           (obs.kv_cache_evictions, evictions)):
+            if n > 0:
+                counter().inc(n, tags=tags)
+        obs.kv_cache_bytes().set(nbytes, tags=tags)
+
+    def request_context(self) -> Optional[Dict[str, str]]:
+        from ray_tpu_torch.serve import obs
+
+        return obs.current_request_context()
+
+    def kv_span(self, name: str, ctx: Dict[str, str], *, t_start: float,
+                t_end: float, cached_tokens: int, prompt_tokens: int) -> None:
+        from ray_tpu_torch.serve import obs
+
+        # how much of this prompt's prefill the kv cache absorbed, on the
+        # request's span tree beside the proxy's ttft phase
+        span = obs.new_span_id()
+        obs.emit_span(
+            f"serve:{ctx['request_id']}:kv:{span[:8]}", f"kv:{name}",
+            request_id=ctx["request_id"], span_id=span,
+            parent_span_id=ctx.get("span_id"), t_start=t_start,
+            t_end=t_end, phases={"cached_tokens": float(cached_tokens),
+                                 "prompt_tokens": float(prompt_tokens)})
+
+    def push_kv_snapshot(self) -> None:
+        import ray_tpu_torch
+        from ray_tpu_torch.util import memory as rt_memory
+
+        if ray_tpu_torch.is_initialized():
+            rt_memory.publish_kv_snapshot(
+                ray_tpu_torch.global_worker()._require_backend())
+
+
 def _parse_request(request: Any) -> Dict[str, Any]:
     """Accept a request object with ``.json()`` (HTTP), a dict (handle
     call), or a JSON string; returns {"tokens": [...], ...}."""
@@ -105,6 +166,10 @@ def _preset(preset: str, seed: int, device: torch.device):
     params = llama.init_params(
         cfg, generator=torch.Generator(device=device).manual_seed(seed),
         device=device)
+    if device.type == "cuda":
+        # the float32 draws leave cached blocks behind (GBs at 7b): hand
+        # them back, so that replicas sharing the card can use them
+        torch.cuda.empty_cache()
     return cfg, params
 
 
@@ -143,7 +208,7 @@ class ContinuousLLM:
         self.device = resolve_device(device)
         self.preset = preset
         self._name = name or f"cb-{preset}"
-        self.hooks = hooks if hooks is not None else ServeHooks()
+        self.hooks = hooks if hooks is not None else ObsHooks()
         self.cfg, self.params = _preset(preset, seed, self.device)
         # the engine's kv counters are cumulative; the tick publishes
         # deltas so counters downstream advance
@@ -263,7 +328,7 @@ class StaticLLM:
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self.preset = preset
-        self.hooks = hooks if hooks is not None else ServeHooks()
+        self.hooks = hooks if hooks is not None else ObsHooks()
         self.cfg, self.params = _preset(preset, seed, self.device)
         self.prompt_pad = prompt_pad
         self.max_new = max_new
@@ -292,9 +357,148 @@ class StaticLLM:
         return [arr[i].tolist() for i in range(len(items))]
 
 
+def continuous_llm_app(preset: str = "debug", *, max_slots: int = 8,
+                       max_len: int = 256, decode_stride: int = 8,
+                       name: str = "CB",
+                       max_ongoing_requests: Optional[int] = None,
+                       autoscaling_config=None,
+                       ray_actor_options: Optional[Dict] = None,
+                       num_replicas: int = 1, seed: int = 0,
+                       kv_cache_bytes: int = 64 * 1024 * 1024,
+                       sampling: bool = False, device: str = "cuda"):
+    """A ready-to-run continuous-batching Application. ``max_ongoing``
+    defaults to 2x the slot count: the engine's pending queue absorbs a
+    burst while slots drain, and the replica rejects beyond that.
+    ``kv_cache_bytes=0`` disables prefix/KV reuse (the cold-prefill
+    control the cache bench compares against). On ``device="cuda"`` each
+    replica reserves one GPU unless ``ray_actor_options`` names
+    ``num_gpus``; a replica that finds no GPU raises."""
+    from ray_tpu_torch import serve
+
+    dep = serve.deployment(ContinuousLLM).options(
+        name=name,
+        num_replicas=None if autoscaling_config else num_replicas,
+        max_ongoing_requests=max_ongoing_requests or 2 * max_slots,
+        autoscaling_config=autoscaling_config,
+        ray_actor_options=_replica_options(ray_actor_options, device))
+    return dep.bind(preset, max_slots=max_slots, max_len=max_len,
+                    decode_stride=decode_stride, seed=seed, name=name,
+                    kv_cache_bytes=kv_cache_bytes, sampling=sampling,
+                    device=device)
+
+
+def static_llm_app(preset: str = "debug", *, max_batch: int = 8,
+                   prompt_pad: int = 16, max_new: int = 16,
+                   batch_wait_timeout_s: float = 0.02, name: str = "Static",
+                   max_ongoing_requests: int = 64, seed: int = 0,
+                   ray_actor_options: Optional[Dict] = None,
+                   device: str = "cuda"):
+    """The static ``@serve.batch`` control Application (one GPU a replica
+    on ``device="cuda"``, as ``continuous_llm_app``)."""
+    from ray_tpu_torch import serve
+
+    dep = serve.deployment(StaticLLM).options(
+        name=name, max_ongoing_requests=max_ongoing_requests,
+        ray_actor_options=_replica_options(ray_actor_options, device))
+    return dep.bind(preset, max_batch=max_batch, prompt_pad=prompt_pad,
+                    max_new=max_new,
+                    batch_wait_timeout_s=batch_wait_timeout_s, seed=seed,
+                    device=device)
+
+
+def _replica_options(ray_actor_options: Optional[Dict],
+                     device: str) -> Dict:
+    """A replica serving on cuda reserves one GPU, so the raylet pins it
+    to one card (``CUDA_VISIBLE_DEVICES``); the caller's options win."""
+    opts = dict(ray_actor_options or {})
+    if torch.device(device).type == "cuda":
+        opts.setdefault("num_gpus", 1)
+    return opts
+
+
 # ---------------------------------------------------------------------------
 # Poisson-arrival load driver
 # ---------------------------------------------------------------------------
+
+
+def cb_vs_static_load(*, preset: str = "debug", slots: int = 8,
+                      max_len: int = 384, decode_stride: int = 16,
+                      prompt_len: int = 8, short_tokens: int = 2,
+                      long_tokens: int = 256, long_frac: float = 0.05,
+                      rps: float = 15.0, duration_s: float = 15.0,
+                      num_proxies: int = 2, timeout_s: float = 240.0,
+                      seed: int = 42, route_base: str = "cbvs",
+                      device: str = "cuda") -> Dict[str, Dict[str, Any]]:
+    """The continuous-vs-static comparison (JAX's twin): open-loop Poisson
+    arrivals round-robined over the proxy fleet at equal offered load and
+    a short/long decode-length mix, against (a) the continuous-batching
+    app and (b) the ``@serve.batch`` control provisioned at
+    ``max_new=long_tokens`` (a batch-boundary system decodes its longest
+    admissible request every flush, the waste slot admission avoids).
+    Each leg warms every (proxy, length) pair first, so replica spawn and
+    the replica's CUDA context stay out of the timed window.
+
+    Requires an initialized ray_tpu_torch; deploys and tears down its own
+    apps (``<route_base>-continuous`` / ``<route_base>-static``). Returns
+    {"continuous": poisson_result, "static": poisson_result}.
+    """
+    import itertools
+
+    from ray_tpu_torch import serve
+
+    prompt = list(range(1, prompt_len + 1))
+    results: Dict[str, Dict[str, Any]] = {}
+    for leg, app, route in (
+        ("continuous",
+         continuous_llm_app(preset, max_slots=slots, max_len=max_len,
+                            decode_stride=decode_stride, name="CB",
+                            max_ongoing_requests=4 * slots, device=device),
+         f"/{route_base}-cb"),
+        ("static",
+         static_llm_app(preset, max_batch=slots, prompt_pad=prompt_len,
+                        max_new=long_tokens, name="Static",
+                        max_ongoing_requests=4 * slots, device=device),
+         f"/{route_base}-static"),
+    ):
+        name = f"{route_base}-{leg}"
+        serve.run(app, name=name, route_prefix=route,
+                  http_options=serve.HTTPOptions(port=0,
+                                                 num_proxies=num_proxies))
+        ports = serve.proxy_ports()
+        fires = {}
+        for p in ports:
+            for n in (short_tokens, long_tokens):
+                fires[(p, n)] = http_token_request(
+                    f"http://127.0.0.1:{p}{route}/", prompt, n,
+                    timeout_s=timeout_s)
+                # warmup: replica spawn, the CUDA context, kernel loads
+                fires[(p, n)]()
+        rr = itertools.cycle(ports)
+        # deterministic length SCHEDULE, consumed by fire order: the two
+        # legs see the same short/long multiset and near-identical
+        # ordering (worker-thread scheduling and client sheds can still
+        # skew tail placement — per-arrival determinism would need index
+        # plumbing through poisson_load)
+        mix_rng = random.Random(7)
+        schedule = [long_tokens if mix_rng.random() < long_frac
+                    else short_tokens
+                    for _ in range(int(rps * duration_s * 4) + 64)]
+        counter = itertools.count()
+        lock = threading.Lock()
+
+        def fire():
+            with lock:
+                i = next(counter)
+                port = next(rr)
+            n = schedule[min(i, len(schedule) - 1)]
+            return fires[(port, n)]()
+
+        results[leg] = poisson_load(fire, rps=rps, duration_s=duration_s,
+                                    seed=seed)
+        serve.delete(name)
+    return results
+
+
 
 
 def http_token_request(url: str, prompt: List[int],

@@ -34,10 +34,3 @@ def write_artifact(artifact: Dict[str, Any], out: Optional[str],
     with open(out, "w", encoding="utf-8") as f:
         f.write(text + "\n")
     print(f"artifact -> {out}", flush=True)
-
-
-def refuse_runtime_legs(prog: str, legs: str) -> None:
-    raise SystemExit(
-        f"{prog}: {legs} need the serve deployment layer and the stream "
-        f"transport on the port's runtime, which are not ported yet "
-        f"(ROADMAP item R1); only leg 1, the engine leg, runs in process")

@@ -3,12 +3,16 @@ memory column, and the ``rt_hbm_used_bytes`` gauges).
 
 The JAX package's ``util/memory.py`` walks the cluster's nodes and reads
 each JAX device's ``memory_stats()``; the port reads the caching
-allocator of each local CUDA device and nothing else. The cluster-wide
-``memory_summary`` waits for the runtime's tooling (ROADMAP item R5).
+allocator of each local CUDA device. Serve replicas push their retained KV
+pages to the cluster's KV (``publish_kv_snapshot``), as JAX's do; the
+cluster-wide ``memory_summary`` that reads them waits for the runtime's
+tooling (ROADMAP item R5).
 """
 
 from __future__ import annotations
 
+import json
+import time
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -51,4 +55,25 @@ def publish_hbm_gauges(sink: Callable[[str, str, float, Dict[str, str]],
             sink(HBM_GAUGE, "set", float(d["bytes_in_use"]),
                  {"device": f"cuda:{d['device']}"})
     except Exception:  # noqa: BLE001 — observability never fails the caller
+        pass
+
+
+#: the cluster-KV prefix of each process's retained KV-cache snapshot
+_KVCACHE_KV_PREFIX = "@memkv/"
+
+
+def publish_kv_snapshot(backend) -> None:
+    """Push this process's live prefix/KV-cache stats to the cluster's KV
+    (``@memkv/<address>``), as JAX's serve replicas do on a throttle."""
+    from ray_tpu_torch.models import serving
+
+    caches = serving.live_kv_cache_stats()
+    if not caches:
+        return
+    owner = getattr(backend, "address", "local")
+    try:
+        backend.kv_put(f"{_KVCACHE_KV_PREFIX}{owner}",
+                       json.dumps({"t": time.time(), "owner": owner,
+                                   "caches": caches}))
+    except Exception:  # noqa: BLE001 — KV unavailable (local backend)
         pass

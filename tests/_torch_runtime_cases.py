@@ -34,6 +34,11 @@ def square(x):
     return x * x
 
 
+def squares_stream(n):
+    for i in range(n):
+        yield i * i
+
+
 def divmod_pair(a, b):
     return divmod(a, b)
 

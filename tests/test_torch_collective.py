@@ -29,9 +29,7 @@ def runs(tmp_path_factory):
         from ray_tpu import collective as jcol
 
         jcol.init_collective_group(world, rank, "all")
-        out = _collective_ops.run(jcol, rank, np.asarray)
-        jcol.destroy_collective_group("all")
-        return out
+        return _collective_ops.run(jcol, rank, np.asarray)
 
     if ray_tpu.is_initialized():
         ray_tpu.shutdown()
@@ -41,6 +39,12 @@ def runs(tmp_path_factory):
         m = ray_tpu.remote(member)
         ref = ray_tpu.get([m.remote(r, WORLD) for r in range(WORLD)],
                           timeout=LIMIT_S)
+        # the group's actor goes once every member is done: a member that
+        # destroyed it on finishing could kill it before a slower member's
+        # last barrier reply reached that member
+        from ray_tpu import collective as jcol
+
+        jcol.destroy_collective_group("all")
     finally:
         ray_tpu.shutdown()
         cloudpickle.unregister_pickle_by_value(_collective_ops)

@@ -87,8 +87,9 @@ def test_top_level_api_covers_jax():
 
 
 def test_streaming_generators_are_refused(mode):
-    """Streaming generators are a later slice (ROADMAP item R1): both
-    modes refuse them at submission, naming it."""
-    f = ray_tpu_torch.remote(num_returns="streaming")(cases.square)
-    with pytest.raises(NotImplementedError, match="R1"):
-        f.remote(3)
+    """Neither mode refuses ``num_returns="streaming"`` now: a generator
+    task streams the same items on both runtimes
+    (``tests/test_torch_stream.py`` holds the transport to JAX's)."""
+    want, got = ([rt.get(r) for r in rt.remote(num_returns="streaming")(
+        cases.squares_stream).remote(5)] for rt in RUNTIMES)
+    assert got == want == [0, 1, 4, 9, 16]
