@@ -121,8 +121,10 @@ process per source, all at once), then:
 13. RLHF (``rlhf``): ``RLHFPipeline`` on the 1b preset at full width and
    22 layers (fp32 masters, bf16 compute, flash, remat; the generator's
    engine in bf16, 8 slots, stride 8), 8 prompts of 128 tokens, 128 new,
-   2 epochs, 3 iterations; iteration 1's KL exactly 0 and iteration 2's
-   not, the reference's params bit-unchanged, every sync's version
+   2 epochs, one iteration (``RLHF_ITERS``; the actors phase carries the
+   depth: with one iteration the checks across iterations run there);
+   iteration 1's KL exactly 0 (and iteration 2's
+   not), the reference's params bit-unchanged, every sync's version
    decoded by the next generate (staleness 0), the generator's greedy
    continuation of a prompt after the last sync equal to batch-1
    ``generate`` on the learner's params cast to bf16 for 8 tokens, finite
@@ -227,13 +229,35 @@ process per source, all at once), then:
    replica start to ready, TTFT p50/p99 through the handle and HTTP,
    ``push_vs_raw_ratio``, RPCs a request by token count, warm against
    cold TTFT;
-22. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
+22. RL on the port's actors (``actors``): the port's cluster with its
+   one GPU and a session store sized for one 1b shipment
+   (``ACTORS_STORE_BYTES``: each frame is freed once decoded); PPO at ``RL_TUNED_PPO`` on 2 CPU runner
+   actors with a ``LearnerGroup`` of 2 learner actors at half a GPU each
+   (the gloo host plane): the members bit-equal after every update, the
+   first update against two in-process learners on the same shards
+   averaging their gradients (``RL_CNN_REL_TOL``); IMPALA at
+   cartpole-impala's config on 2 runner actors; then ``RLHFPipeline`` at
+   ``RLHF_PRESET`` and ``RLHF_CFG`` with its four roles as GPU actors (a
+   quarter of the card each) for 2 iterations: the first iteration's
+   sequences exact and its scores, logprobs and learner metrics within
+   ``ACTORS_RLHF_REL_TOL`` of the in-process pipeline's (the rlhf
+   phase's first iteration), KL exactly 0 then not, staleness 0, every
+   sync by push with oid leaves, each role phase's launches counted in
+   the role's process and held exactly to ``rlhf_expected_launches``;
+   a 1b bf16 tree shipped from the learner's process to the
+   generator's by push and by the fallback under chaos ``rpc.drop``,
+   leaf-exact on the generator's card; the store's and /dev/shm's used
+   bytes back at their level after each of the 4 syncs and no spill
+   (every frame freed); cluster start, build and
+   iteration seconds, role start, sync bytes and seconds;
+23. a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
 
 Each path (serve, serve_kv, llm, spec, moe, train, driver, moe_train,
-rlhf, mesh, seqpipe, tools, cluster, deploy)
+rlhf, mesh, seqpipe, tools, cluster, deploy, actors)
 zeroes every kernel's launch count
 just before it runs and reads them just after (cluster: in its worker;
-deploy: in its replica, as the difference of two reads around the path);
+deploy: in its replica, as the difference of two reads around the path;
+actors: in each RLHF role's process around each role phase, summed);
 a kernel of the paths that
 was not launched fails the run (the float32 CUDA-core forward is on no
 path: its entry reports its launches, 0, and its cases).
@@ -250,6 +274,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import gc
 import json
@@ -2819,7 +2844,7 @@ def moe_train_phase(torch, np, tts, tflops, flash):
 RLHF_PRESET = "1b"
 RLHF_CFG = {"num_prompts": 8, "prompt_len": 128, "max_new_tokens": 128,
             "max_slots": 8, "decode_stride": 8, "num_epochs": 2}
-RLHF_ITERS = 3
+RLHF_ITERS = 1   # the actors phase carries the depth (2 iterations)
 RLHF_CHECK_TOKENS = 8
 RLHF_ROLE_METHODS = (("generator", "generate", "generate"),
                      ("reward", "score", "score_reward"),
@@ -2853,9 +2878,10 @@ def rlhf_expected_launches(n_layers, epochs, admitted, decode_steps):
 
 
 def rlhf_phase(torch, np, tllama, TG, tts, tflops, flash):
-    """The RLHF pipeline at 1b, full width and depth: three iterations of
-    generate, score, update and sync on one card, each role phase's
-    launches counted by kernel."""
+    """The RLHF pipeline at 1b, full width and depth: ``RLHF_ITERS``
+    iterations of generate, score, update and sync on one card, each
+    role phase's launches counted by kernel; the first iteration's
+    outputs kept in ``RLHF_FIRST`` for the actors phase."""
     from ray_tpu_torch.rl.rlhf import pipeline as tpipe
 
     cfg = dataclasses.replace(tllama.PRESETS[RLHF_PRESET], attn_impl="flash")
@@ -2872,12 +2898,15 @@ def rlhf_phase(torch, np, tllama, TG, tts, tflops, flash):
              "reference": pipe.reference, "learner": pipe.learner}
     by_phase = {}
 
+    outputs = {}
+
     def counted(fn, phase):
         def run(*a, **kw):
             before = read_launches(flash)
             out = fn(*a, **kw)
             after = read_launches(flash)
             by_phase[phase] = {k: after[k] - before[k] for k in after}
+            outputs.setdefault(phase, out)   # the first iteration's
             return out
         return run
 
@@ -2903,6 +2932,7 @@ def rlhf_phase(torch, np, tllama, TG, tts, tflops, flash):
         peak = torch.cuda.max_memory_allocated()
         for role, method, _ in RLHF_ROLE_METHODS:
             delattr(roles[role], method)
+        RLHF_FIRST.update(rlhf_first_record(outputs))
         ref_unchanged = all(torch.equal(t, ref_before[k]) for k, t in
                             tts._leaves(pipe.reference._params).items())
         del ref_before
@@ -2973,8 +3003,9 @@ def rlhf_phase(torch, np, tllama, TG, tts, tflops, flash):
     check(results[0]["kl_mean"] == 0.0,
           f"iteration 1 kl_mean {results[0]['kl_mean']}, want exactly 0 "
           f"(reference and learner hold the same weights)")
-    check(results[1]["kl_mean"] != 0.0,
-          "iteration 2 kl_mean is 0: the reference tracks the learner")
+    if len(results) > 1:   # else the actors phase checks it
+        check(results[1]["kl_mean"] != 0.0,
+              "iteration 2 kl_mean is 0: the reference tracks the learner")
     check(ref_unchanged, "the reference's params changed")
     for a, b in zip(results, results[1:]):
         check(a["weights_version"] == b["decoded_version"],
@@ -6504,10 +6535,591 @@ def deploy_phase(torch, np, tllama, flash, smi):
     return out["launches"]
 
 
+# ------------------------------------------------------------ actors
+
+ACTORS_PPO_ITERS = 4
+ACTORS_IMPALA_ITERS = 4
+ACTORS_LEARNERS, ACTORS_GPUS_PER_LEARNER = 2, 0.5
+ACTORS_RLHF_ITERS = 2
+# the session's object store, sized for ONE 1b bf16 shipment (2.2 GB)
+# and headroom: the consumer frees each oid frame as it decodes it, so
+# the store never holds more than one shipment; the phase checks that the
+# store's and /dev/shm's used bytes are back at their level after every
+# sync (within these slacks) and that nothing spilled
+ACTORS_STORE_BYTES = 3 << 30
+ACTORS_STORE_SLACK, ACTORS_SHM_SLACK = 64 << 20, 256 << 20
+ACTORS_SHIP_SEED = 23
+# the actor pipeline's first iteration against the in-process one on the
+# same card, weights and seed: the same kernels on the same inputs, so
+# tokens exact and every float within this relative difference
+ACTORS_RLHF_REL_TOL = 1e-5
+# the in-process rlhf phase's first iteration (generate sequences, reward
+# scores, reference logprobs, the learner's metrics), kept for the actors
+# phase
+RLHF_FIRST = {}
+
+
+def actor_role_classes(tpipe):
+    """The pipeline's role classes as counted by the actors phase: each
+    phase method of ``RLHF_ROLE_METHODS`` reads the flash launch counts
+    by kernel in the role's process before and after and keeps its
+    output, read back (and cleared) by ``phase_record()``; the learner
+    ships, and the generator fetches and checks, a seeded 1b tree
+    (``ship_check`` / ``fetch_check``)."""
+    by_role = {}
+    for role, method, phase in RLHF_ROLE_METHODS:
+        by_role.setdefault(role, []).append((method, phase))
+    names = {"learner": "RLHFLearner", "reference": "RLHFReference",
+             "reward": "RLHFReward", "generator": "RLHFGenerator"}
+    out = {}
+    for role, cls_name in names.items():
+        base = getattr(tpipe, cls_name)
+        body = {}
+
+        def init(self, *a, _base=base, **kw):
+            _base.__init__(self, *a, **kw)
+            self._by_phase, self._outs = {}, {}
+
+        def phase_record(self):
+            rec = {"launches": self._by_phase, "outputs": self._outs}
+            self._by_phase, self._outs = {}, {}
+            return rec
+
+        body.update(__init__=init, phase_record=phase_record)
+        for method, phase in by_role[role]:
+            def counted(self, *a, _base=base, _m=method, _p=phase):
+                from ray_tpu_torch.ops import flash
+
+                before = read_launches(flash)
+                res = getattr(_base, _m)(self, *a)
+                after = read_launches(flash)
+                self._by_phase[_p] = {k: after[k] - before[k] for k in after}
+                self._outs[_p] = res
+                return res
+            body[method] = counted
+        if role == "learner":
+            body["ship_check"] = actors_ship_check
+            body["ship_release"] = actors_ship_release
+        if role == "generator":
+            body["fetch_check"] = actors_fetch_check
+        out[cls_name] = type(cls_name, (base,), body)
+    return out
+
+
+def actors_seeded_tree(role, seed):
+    """A 1b params tree in the role's compute dtype on its device, drawn
+    from ``seed``."""
+    import torch
+
+    from ray_tpu_torch.models import llama
+
+    gen = torch.Generator(device=role.device).manual_seed(seed)
+    return llama.init_params(role.cfg, generator=gen, device=role.device,
+                             dtype=role.cfg.compute_dtype)
+
+
+def actors_ship_check(self, seed):
+    """Learner side: ship a seeded 1b tree (kept alive until released)."""
+    from ray_tpu_torch import collective
+
+    self._ship_tree = actors_seeded_tree(self, seed)
+    t0 = time.perf_counter()
+    ticket = collective.ship_params(self._ship_tree)
+    ticket["ship_s"] = time.perf_counter() - t0
+    return ticket
+
+
+def actors_ship_release(self):
+    import torch
+
+    self._ship_tree = None
+    torch.cuda.empty_cache()
+
+
+def actors_fetch_check(self, ticket, seed, drop):
+    """Generator side: fetch the shipment (chaos dropping the push
+    channel on its first take where ``drop``), then hold every leaf
+    against the same seeded tree drawn here: dtype, device and values."""
+    import torch
+
+    from ray_tpu_torch import collective
+    from ray_tpu_torch.parallel.train_step import _leaves
+    from ray_tpu_torch.util import chaos
+
+    if drop:
+        chaos.arm('{"seed": 1, "faults": [{"site": "rpc.drop", "target": '
+                  '"stream_push", "at": 1, "max_fires": 1}]}')
+    try:
+        t0 = time.perf_counter()
+        got, info = collective.fetch_params(ticket)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        info["fetch_s"] = time.perf_counter() - t0
+    finally:
+        if drop:
+            chaos.disarm()
+    want = _leaves(actors_seeded_tree(self, seed))
+    got = _leaves(got)
+    info["leaf_exact"] = (got.keys() == want.keys() and all(
+        g.dtype == w.dtype and g.device == w.device and torch.equal(g, w)
+        for g, w in ((got[k], want[k]) for k in want)))
+    info["device"] = str(next(iter(got.values())).device)
+    del got, want
+    torch.cuda.empty_cache()
+    return info
+
+
+def averaged_pair_syncs(n):
+    """``n`` grad syncs for ``n`` learners updating in ``n`` threads: each
+    returns the members' mean gradient (the LearnerGroup's allreduce /
+    world, here on the device)."""
+    barrier = threading.Barrier(n, timeout=300)
+    slots = [None] * n
+
+    def make(i):
+        def sync(grads):
+            from ray_tpu_torch.rl import models as rlm
+
+            slots[i] = grads
+            barrier.wait()
+            total = slots[0]
+            for other in slots[1:]:
+                total = rlm.tree_map(lambda a, b: a + b, total, other)
+            avg = rlm.tree_map(lambda a: a / n, total)
+            barrier.wait()
+            return avg
+        sync.barrier = barrier
+        return sync
+
+    return [make(i) for i in range(n)]
+
+
+def actors_ppo_build(trl):
+    """PPO at ``RL_TUNED_PPO`` with a LearnerGroup of ``ACTORS_LEARNERS``
+    learner actors at ``ACTORS_GPUS_PER_LEARNER`` GPUs: (algo, build s)."""
+    cfg = trl.PPOConfig().training(**RL_TUNED_PPO)
+    cfg.num_learners = ACTORS_LEARNERS
+    cfg.num_gpus_per_learner = ACTORS_GPUS_PER_LEARNER
+    t0 = time.perf_counter()
+    algo = cfg.build(device=DEV)
+    return algo, time.perf_counter() - t0
+
+
+def actors_ppo(torch, np, trl, rt, algo, build_s):
+    """PPO at ``RL_TUNED_PPO`` on 2 CPU runner actors with a LearnerGroup
+    of 2 learners at half a GPU each: the members bit-equal after every
+    update, the first update against two in-process learners on the same
+    shards averaging their gradients (within RL_CNN_REL_TOL)."""
+    from ray_tpu_torch.rl import models as rlm
+    from ray_tpu_torch.rl.algorithms.ppo import make_ppo_loss
+    from ray_tpu_torch.rl.learner import Learner
+
+    cfg = algo.config
+    init = algo.get_params()        # rank 0's, broadcast to both
+    check(all(isinstance(r, rt.ActorHandle) for r in algo.runners)
+          and isinstance(algo.learner, trl.LearnerGroup),
+          "actors: PPO's runners and learners are not actors")
+    first = {}
+    group_update = algo.learner.update
+
+    def capture(batch, **kw):
+        if not first:
+            first.update(batch={k: np.array(v) for k, v in batch.items()},
+                         kw=kw)
+        return group_update(batch, **kw)
+
+    algo.learner.update = capture
+    iters, members_equal, after_first = [], [], None
+    try:
+        for i in range(ACTORS_PPO_ITERS):
+            t0 = time.perf_counter()
+            r = algo.train()
+            wall = time.perf_counter() - t0
+            members = rt.get([a.get_params.remote()
+                              for a in algo.learner.actors])
+            members_equal.append(all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(members[0]),
+                                                  tree_leaves(members[1]))))
+            if i == 0:
+                after_first = members[0]
+            iters.append({"wall_s": wall, "loss": r["loss"],
+                          "episode_return_mean": r["episode_return_mean"],
+                          "env_steps_this_iter": r["env_steps_this_iter"]})
+    finally:
+        algo.stop()
+    # the reference: two in-process learners on the card, the same shards
+    batch, kw = first["batch"], first["kw"]
+    n = len(batch["rewards"])
+    n_even = n - n % ACTORS_LEARNERS
+    loss_fn = make_ppo_loss(algo.spec, cfg.clip_param, cfg.vf_coeff,
+                            cfg.entropy_coeff)
+    syncs = averaged_pair_syncs(ACTORS_LEARNERS)
+    learners = [Learner(rlm.clone_tree(init), loss_fn, cfg.lr,
+                        grad_clip=cfg.grad_clip, seed=cfg.seed, device=DEV,
+                        grad_sync=syncs[i])
+                for i in range(ACTORS_LEARNERS)]
+    errors = []
+
+    def member(i):
+        try:
+            learners[i].update({k: v[i:n_even:ACTORS_LEARNERS]
+                                for k, v in batch.items()}, **kw)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+            syncs[i].barrier.abort()
+
+    threads = [threading.Thread(target=member, args=(i,))
+               for i in range(ACTORS_LEARNERS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    ref = [[t.cpu() for t in tree_leaves(lr.get_params())]
+           for lr in learners]
+    got = tree_leaves(after_first)
+    rel = [float((g - w).abs().max() / (w.abs().max() + 1e-12))
+           for g, w in zip(got, ref[0])]
+    out = {"config": {**RL_TUNED_PPO, "num_learners": ACTORS_LEARNERS,
+                      "num_gpus_per_learner": ACTORS_GPUS_PER_LEARNER},
+           "build_s": build_s, "iterations": iters,
+           "members_bit_equal": members_equal,
+           "first_update_rel_err_max": max(rel),
+           "reference_members_equal": all(
+               torch.equal(a, b) for a, b in zip(ref[0], ref[1]))}
+    check(all(members_equal), f"actors: the LearnerGroup's members differ "
+                              f"after an update: {members_equal}")
+    check(max(rel) <= RL_CNN_REL_TOL,
+          f"actors: the group's first update against two in-process "
+          f"learners: rel err {max(rel)} > {RL_CNN_REL_TOL}")
+    check(all(np.isfinite(it["loss"]) and it["env_steps_this_iter"]
+              == 2 * 8 * 64 for it in iters), f"actors: PPO {iters}")
+    return out
+
+
+def actors_impala_build(trl):
+    """cartpole-impala's algorithm on runner actors: (algo, build s)."""
+    cfg = trl.IMPALAConfig().training(**RL_OTHERS[0][3])
+    t0 = time.perf_counter()
+    algo = cfg.build(device=DEV)
+    return algo, time.perf_counter() - t0
+
+
+def actors_impala(np, rt, algo, build_s):
+    """cartpole-impala's config on 2 runner actors, fragments consumed in
+    ``wait`` order, the learner on the card."""
+    name, run, env, conf, _, steps = RL_OTHERS[0]
+    iters = []
+    try:
+        check(len(algo.runners) == 2 and all(
+            isinstance(r, rt.ActorHandle) for r in algo.runners),
+            "actors: IMPALA's runners are not actors")
+        for _ in range(ACTORS_IMPALA_ITERS):
+            t0 = time.perf_counter()
+            r = algo.train()
+            iters.append({"wall_s": time.perf_counter() - t0,
+                          "pi_loss": r["pi_loss"],
+                          "env_steps_this_iter": r["env_steps_this_iter"],
+                          "episode_return_mean": r["episode_return_mean"]})
+    finally:
+        algo.stop()
+    check(all(np.isfinite(it["pi_loss"]) and it["env_steps_this_iter"]
+              == steps for it in iters), f"actors: IMPALA {iters}")
+    return {"config": name, "build_s": build_s, "iterations": iters}
+
+
+def actors_rlhf_reference(torch, np, tllama):
+    """The in-process pipeline's first iteration when the rlhf phase did
+    not run: its sequences, scores, logprobs and learner metrics."""
+    from ray_tpu_torch.rl.rlhf import pipeline as tpipe
+
+    cfg = dataclasses.replace(tllama.PRESETS[RLHF_PRESET], attn_impl="flash")
+    pipe = tpipe.RLHFPipeline(tpipe.RLHFConfig(preset=cfg, **RLHF_CFG),
+                              device=DEV)
+    seen = {}
+    for role, method, phase in RLHF_ROLE_METHODS[:4]:
+        obj = getattr(pipe, role)
+        fn = getattr(obj, method)
+
+        def spy(*a, _fn=fn, _p=phase):
+            seen[_p] = _fn(*a)
+            return seen[_p]
+        setattr(obj, method, spy)
+    try:
+        pipe.run_iteration()
+    finally:
+        pipe.shutdown()
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rlhf_first_record(seen)
+
+
+def rlhf_first_record(seen):
+    """What the actors phase compares of a first RLHF iteration."""
+    return {"sequences": seen["generate"]["sequences"],
+            "scores": seen["score_reward"]["scores"],
+            "logprobs": seen["score_ref"]["logprobs"],
+            "update": {k: seen["update"][k] for k in (
+                "loss", "ratio_mean", "kl_mean", "reward_mean")}}
+
+
+def actors_rlhf_build(tllama, tpipe):
+    """The pipeline at ``RLHF_PRESET`` and ``RLHF_CFG`` with its four
+    roles as counted GPU actors (``actor_role_classes``): (pipe, seconds
+    to the roles' readiness)."""
+    cfg = dataclasses.replace(tllama.PRESETS[RLHF_PRESET], attn_impl="flash")
+    rc = tpipe.RLHFConfig(preset=cfg, **RLHF_CFG)
+    saved = {name: getattr(tpipe, name) for name in (
+        "RLHFLearner", "RLHFReference", "RLHFReward", "RLHFGenerator")}
+    for name, cls in actor_role_classes(tpipe).items():
+        setattr(tpipe, name, cls)
+    t0 = time.perf_counter()
+    try:
+        pipe = tpipe.RLHFPipeline(rc, device=DEV)
+    finally:
+        for name, cls in saved.items():
+            setattr(tpipe, name, cls)
+    return pipe, time.perf_counter() - t0
+
+
+def actors_rlhf(torch, np, tllama, tpipe, rt, ref, pipe, roles_start_s):
+    """The RLHF pipeline on four role actors at 1b, full width: 2
+    iterations, each role phase's launches counted in its process and
+    held exactly to ``rlhf_expected_launches``; the first iteration
+    against the in-process pipeline; a 1b shipment between two role
+    processes by push and by the fallback."""
+    from ray_tpu_torch.parallel.train_step import _leaves
+
+    cfg, rc = pipe.cfg.preset, pipe.cfg
+    out = {"roles_start_s": roles_start_s,
+           "placement": pipe.stats()["placement"]}
+    print(f"actors: four RLHF roles up in {roles_start_s:.1f} s", flush=True)
+    results, records, engine, want = [], [], [], []
+    total = {k: 0 for k in read_launches_keys()}
+    ship = {}
+    # the store before any sync, then after each
+    store = [actors_store()]
+    try:
+        for _ in range(ACTORS_RLHF_ITERS):
+            e0 = rt.get(pipe.generator.engine_stats.remote())
+            t0 = time.perf_counter()
+            results.append(pipe.run_iteration())
+            wall = time.perf_counter() - t0
+            e1 = rt.get(pipe.generator.engine_stats.remote())
+            rec = {}
+            for role in ("generator", "reward", "reference", "learner"):
+                r = rt.get(getattr(pipe, role).phase_record.remote())
+                for phase, counts in r["launches"].items():
+                    rec.setdefault("launches", {})[phase] = counts
+                    for k in total:
+                        total[k] += counts[k]
+                rec.setdefault("outputs", {}).update(r["outputs"])
+            steps = e1["decode_steps"] - e0["decode_steps"]
+            admitted = e1["admitted"] - e0["admitted"]
+            engine.append({"decode_steps": steps, "admitted": admitted,
+                           "wall_s": wall})
+            want.append(rlhf_expected_launches(cfg.n_layers, rc.num_epochs,
+                                               admitted, steps))
+            records.append(rec)
+            store.append(actors_store())
+        # a 1b bf16 tree between two role processes: push, then chaos
+        for drop in (False, True):
+            ticket = rt.get(pipe.learner.ship_check.remote(ACTORS_SHIP_SEED))
+            t0 = time.perf_counter()
+            info = rt.get(pipe.generator.fetch_check.remote(
+                ticket, ACTORS_SHIP_SEED, drop))
+            info["wall_s"] = time.perf_counter() - t0
+            info["ship_s"] = ticket["ship_s"]
+            rt.get(pipe.learner.ship_release.remote())
+            ship["fallback" if drop else "push"] = info
+            store.append(actors_store())
+        summary = pipe.stats()["recorder"]
+    finally:
+        pipe.shutdown()
+    out.update(engine=engine, ship=ship, launches=total, store=store,
+               launches_by_iteration=[r["launches"] for r in records],
+               recorder={k: summary.get(k) for k in (
+                   "bubble_fraction", "coverage", "role_busy_frac",
+                   "tax_s", "staleness", "receipt_last")},
+               iterations=[{k: r[k] for k in (
+                   "iteration", "loss", "kl_mean", "reward_mean",
+                   "phases_s", "phases_actor_s", "tokens_generated",
+                   "generate_tok_s", "sync_bytes", "sync_s",
+                   "swap_drain_s", "receipt", "weights_version",
+                   "decoded_version", "staleness")} for r in results])
+    # the first iteration against the in-process pipeline's
+    got = rlhf_first_record(records[0]["outputs"])
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-12))
+
+    diffs = {"scores": rel(got["scores"], ref["scores"]),
+             "logprobs": rel(got["logprobs"], ref["logprobs"])}
+    diffs.update({k: abs(got["update"][k] - v) / max(abs(v), 1e-12)
+                  for k, v in ref["update"].items() if v != 0.0})
+    tokens_equal = bool(np.array_equal(got["sequences"], ref["sequences"]))
+    out["vs_in_process"] = {"tokens_equal": tokens_equal,
+                            "rel_diffs": diffs,
+                            "kl_mean": got["update"]["kl_mean"]}
+    check(tokens_equal, "actors: the actor pipeline's first sequences "
+                        "differ from the in-process pipeline's")
+    check(all(v <= ACTORS_RLHF_REL_TOL for v in diffs.values()),
+          f"actors: first iteration against the in-process pipeline: "
+          f"{diffs}")
+    # the rlhf phase's checks
+    check(results[0]["kl_mean"] == 0.0 and results[1]["kl_mean"] != 0.0,
+          f"actors: kl_mean {[r['kl_mean'] for r in results]}, want "
+          f"exactly 0 then not")
+    check(all(r["staleness"] == 0 for r in results)
+          and results[0]["weights_version"] == results[1]["decoded_version"],
+          f"actors: versions {[(r['weights_version'], r['decoded_version'], r['staleness']) for r in results]}")
+    check(all(r["receipt"]["transport"] == "push"
+              and r["receipt"]["oid_leaves"] > 0 for r in results),
+          f"actors: sync receipts {[r['receipt'] for r in results]}")
+    for i, (got_l, want_l) in enumerate(zip(out["launches_by_iteration"],
+                                            want)):
+        for phase, w in want_l.items():
+            g = {k: got_l.get(phase, {}).get(k) for k in w}
+            check(g == w, f"actors: iteration {i + 1} {phase} launches in "
+                          f"the role process {g}, want {w}")
+    # every shipment's frames freed: the store and /dev/shm back at their
+    # level after each of the 4 syncs, and no object spilled
+    check(all(s["used_bytes"] - store[0]["used_bytes"] <= ACTORS_STORE_SLACK
+              and s["shm_used_bytes"] - store[0]["shm_used_bytes"]
+              <= ACTORS_SHM_SLACK and s["spills"] == store[0]["spills"]
+              for s in store[1:]),
+          f"actors: the store across the syncs {store}")
+    check(all(ship[k]["leaf_exact"] and ship[k]["transport"] == k
+              and ship[k]["oid_leaves"] > 0 and ship[k]["device"]
+              .startswith(DEV) for k in ship),
+          f"actors: the 1b shipment {ship}")
+    return out
+
+
+def actors_store():
+    """The node store's used bytes and spills so far (its raylet's memory
+    report), and the bytes used in /dev/shm (every mapped page, unlinked
+    objects' included)."""
+    from ray_tpu_torch.core.worker import global_worker
+
+    backend = global_worker()._require_backend()
+    rep = backend.io.run(backend._raylet.call("memory_report",
+                                              {"limit": 1}))["store"]
+    st = os.statvfs("/dev/shm")
+    return {"used_bytes": rep["used_bytes"], "spills": rep["spills"],
+            "shm_used_bytes": (st.f_blocks - st.f_bfree) * st.f_frsize}
+
+
+def read_launches_keys():
+    return list(LAUNCH_COUNTERS) + [f"flash_fwd_{k}" for k in
+                                    ("tcb", "dec", "simt")]
+
+
+def actors_phase(torch, np, tllama, flash, smi):
+    """RL on the port's actors (``actors``): the port's cluster with its
+    one GPU; PPO with runner and learner actors, IMPALA on runner actors,
+    the RLHF pipeline's four roles as GPU actors at 1b with the weights
+    over the stream plane (module docstring, item 22). The path's
+    launches are the role processes' (the driver launches none)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import rl as trl
+    from ray_tpu_torch.rl.rlhf import pipeline as tpipe
+
+    out = {"phase": "actors", "nvidia_smi": smi,
+           "store_bytes": ACTORS_STORE_BYTES}
+    t_phase = time.perf_counter()
+    # the in-process pipeline's first iteration (the rlhf phase's, else
+    # run here, before the runtime: with it the roles would be actors)
+    ref = RLHF_FIRST or actors_rlhf_reference(torch, np, tllama)
+    out["reference_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    out["card_used_at_start_gib"] = card_used(torch) / 2**30
+    out["card_free_wait_s"] = actors_wait_card_free(torch)
+    before = read_launches(flash)
+    try:
+        t0 = time.perf_counter()
+        rt.init(_system_config={
+            "object_store_memory_bytes": ACTORS_STORE_BYTES})
+        out["cluster_start_s"] = time.perf_counter() - t0
+        res = rt.cluster_resources()
+        check(res.get("GPU") == 1, f"actors: resources {res}, want GPU 1")
+        # cold processes start beside earlier work: IMPALA's CPU runners
+        # during PPO, the RLHF roles (whose GPU shares PPO's learners
+        # hold until they stop) during IMPALA
+        pool = concurrent.futures.ThreadPoolExecutor(2)
+        t0 = time.perf_counter()
+        # one algorithm built at a time: torch's lazy CUDA linear-algebra
+        # init (the policy's orthogonal draws) is not thread-safe
+        ppo = actors_ppo_build(trl)
+        impala_build = pool.submit(actors_impala_build, trl)
+        out["ppo"] = actors_ppo(torch, np, trl, rt, *ppo)
+        out["ppo"]["part_s"] = time.perf_counter() - t0
+        print(f"actors: PPO {json.dumps(out['ppo'])}", flush=True)
+        t0 = time.perf_counter()
+        rlhf_build = pool.submit(actors_rlhf_build, tllama, tpipe)
+        out["impala"] = actors_impala(np, rt, *impala_build.result())
+        out["impala"]["part_s"] = time.perf_counter() - t0
+        print(f"actors: IMPALA {json.dumps(out['impala'])}", flush=True)
+        t0 = time.perf_counter()
+        out["rlhf"] = actors_rlhf(torch, np, tllama, tpipe, rt, ref,
+                                  *rlhf_build.result())
+        out["rlhf"]["part_s"] = time.perf_counter() - t0
+        pool.shutdown()
+    finally:
+        if rt.is_initialized():
+            rt.shutdown()
+        get_config_reset_store()
+    driver = read_launches(flash)
+    out["driver_launches"] = {k: driver[k] - before[k] for k in driver}
+    out["phase_s"] = time.perf_counter() - t_phase
+    r = out["rlhf"]
+    print(f"actors ({smi}): cluster start {out['cluster_start_s']:.2f} s; "
+          f"PPO {out['ppo']['part_s']:.1f} s (build "
+          f"{out['ppo']['build_s']:.1f} s), IMPALA "
+          f"{out['impala']['part_s']:.1f} s; RLHF roles up "
+          f"{r['roles_start_s']:.1f} s, iterations "
+          f"{[round(e['wall_s'], 2) for e in r['engine']]} s, sync "
+          f"{[it['sync_s'] for it in r['iterations']]} s of "
+          f"{r['iterations'][0]['sync_bytes']} bytes; 1b shipment push "
+          f"{r['ship']['push']['wall_s']:.2f} s, fallback "
+          f"{r['ship']['fallback']['wall_s']:.2f} s; role launches "
+          f"{r['launches']}; phase {out['phase_s']:.1f} s", flush=True)
+    emit(out)
+    check(all(v == 0 for v in out["driver_launches"].values()),
+          f"actors: the driver launched {out['driver_launches']}")
+    return r["launches"]
+
+
+def actors_wait_card_free(torch, slack_gib=2.0, timeout_s=120.0):
+    """Seconds until the card holds no more than ``slack_gib`` beyond this
+    process's reservation (the processes of earlier phases have exited
+    and released theirs); fails after ``timeout_s``."""
+    if DEV != "cuda":
+        return 0.0
+    t0 = time.perf_counter()
+    while card_used(torch) - torch.cuda.memory_reserved() \
+            > slack_gib * 2**30:
+        check(time.perf_counter() - t0 < timeout_s,
+              f"actors: {card_used(torch) / 2**30:.1f} GiB of the card "
+              f"held by other processes {timeout_s:.0f} s into the phase")
+        time.sleep(0.5)
+    return time.perf_counter() - t0
+
+
+def get_config_reset_store():
+    """The process's runtime config back to the default store size."""
+    from ray_tpu_torch._private.config import get_config
+
+    get_config().object_store_memory_bytes = 0
+
+
 PHASES = ("kernel", "bwd", "integration", "grad", "serve", "llm", "spec",
           "moe", "train", "driver", "moe_train", "rlhf", "anakin", "rl",
           "vit", "mesh", "seqpipe", "tools", "cluster",
-          "deploy")
+          "deploy", "actors")
 
 
 def kernel_entry(name, source, replaces, launches, head, part=None,
@@ -6632,6 +7244,8 @@ def main(argv=None) -> int:
         launches["cluster"] = cluster_phase(torch, np, tllama, flash, smi)
     if "deploy" in only:
         launches["deploy"] = deploy_phase(torch, np, tllama, flash, smi)
+    if "actors" in only:
+        launches["actors"] = actors_phase(torch, np, tllama, flash, smi)
     if args.only is not None:
         print(json.dumps({"partial_run": sorted(only)}), flush=True)
         return 0

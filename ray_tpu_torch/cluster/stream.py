@@ -50,7 +50,8 @@ from ray_tpu_torch.util import metrics as M
 __all__ = [
     "register_source", "unregister_source", "reclaim", "drain_source",
     "settle_source", "peek_unacked", "push_enabled", "subscribe",
-    "take_decoded", "handle_subscribe", "stream_window",
+    "take_decoded", "handle_subscribe", "stream_window", "encode_item",
+    "free_frames",
     "observe_request_rpcs", "count_pull_frames",
 ]
 
@@ -148,13 +149,18 @@ class _RegisteredSource:
     """One pushable stream in this process. ``pump`` provides
     ``async take(max_items) -> (items, done)`` and ``close()``;
     ``on_done`` runs when the stream fully completes over push
-    (the replica uses it to release the in-flight slot)."""
+    (the replica uses it to release the in-flight slot).
+    ``free_frames``: the stream's oid frames are freed once settled (its
+    consumer frees each frame it decodes, ``take_decoded(free=True)``;
+    the producer frees the rest, see ``_PushBinding.frame_oids``)."""
 
     def __init__(self, sid: str, pump: Any,
-                 on_done: Optional[Callable[[], None]]):
+                 on_done: Optional[Callable[[], None]],
+                 free_frames: bool = False):
         self.sid = sid
         self.pump = pump
         self.on_done = on_done
+        self.free_frames = free_frames
         self.binding: Optional[_PushBinding] = None
 
 
@@ -163,18 +169,27 @@ _sources: Dict[str, _RegisteredSource] = {}  # rt: guarded-by(_reg_lock)
 
 
 def register_source(sid: str, pump: Any,
-                    on_done: Optional[Callable[[], None]] = None) -> None:
+                    on_done: Optional[Callable[[], None]] = None,
+                    free_frames: bool = False) -> None:
     with _reg_lock:
-        _sources[sid] = _RegisteredSource(sid, pump, on_done)
+        _sources[sid] = _RegisteredSource(sid, pump, on_done, free_frames)
 
 
 def unregister_source(sid: str) -> None:
     """Drop the source (cancel / stream finished via pull). Stops a live
-    push pump; does NOT close the pump (the stream owner does that)."""
+    push pump; does NOT close the pump (the stream owner does that). A
+    ``free_frames`` source's pushed frames are freed once its pump has
+    stopped."""
     with _reg_lock:
         rs = _sources.pop(sid, None)
     if rs is not None and rs.binding is not None:
-        rs.binding.request_stop()
+        binding = rs.binding
+        binding.request_stop()
+        if rs.free_frames:
+            async def free_when_stopped():
+                await binding.wait_finished()
+                await free_frames(binding.backend, binding.take_frames(0))
+            binding.on_loop(lambda: spawn_task(free_when_stopped()))
 
 
 async def reclaim(sid: str, delivered: int
@@ -200,6 +215,9 @@ async def reclaim(sid: str, delivered: int
     except asyncio.TimeoutError:
         pass  # wedged source: serve what the buffer has
     items = [it for seq, it in binding.replay if seq >= delivered]
+    # the consumer decoded (and freed) the frames before ``delivered``;
+    # the rest are re-encoded for it, so their pushed copies go
+    await free_frames(binding.backend, binding.take_frames(delivered))
     err: Optional[BaseException] = None
     if binding.error_payload is not None:
         decoded = binding.backend.serde.deserialize_payload(
@@ -307,6 +325,9 @@ class _PushBinding:
         self.sent = 0
         self.acked = 0
         self.replay: deque = deque()  # (seq, item) pushed but unacked
+        # seq -> descriptor of each oid frame pushed, kept for a
+        # ``free_frames`` source until the stream settles
+        self.frame_oids: Dict[int, Tuple] = {}
         self.source_done = False      # pump exhausted the source
         self.error_payload: Optional[bytes] = None
         self.completed = False
@@ -356,15 +377,27 @@ class _PushBinding:
         the event wakeup is routed to the producer's loop."""
         self._stop = True
         self._notify_pump_stop()
+        self.on_loop(self._credit_event.set)
+
+    def on_loop(self, fn: Callable[[], Any]) -> None:
+        """``fn()`` on the producer's loop: now when called there, else
+        scheduled from this thread."""
         loop = self.backend.loop
         try:
             running = asyncio.get_running_loop()
         except RuntimeError:
             running = None
         if running is loop:
-            self._credit_event.set()
+            fn()
         elif not loop.is_closed():
-            loop.call_soon_threadsafe(self._credit_event.set)
+            loop.call_soon_threadsafe(fn)
+
+    def take_frames(self, first_seq: int) -> List[Tuple]:
+        """The recorded oid frames from ``first_seq`` on; the record is
+        cleared (each frame is freed once)."""
+        out = [d for seq, d in self.frame_oids.items() if seq >= first_seq]
+        self.frame_oids.clear()
+        return out
 
     def _notify_pump_stop(self) -> None:
         """A detached/broken binding may strand a pump ``take`` parked on
@@ -387,6 +420,11 @@ class _PushBinding:
         self.completed = True
         with _reg_lock:
             _sources.pop(self.rs.sid, None)
+        if self.frame_oids:
+            # the consumer took the final frame after decoding (and so
+            # freeing) every other: this frees the copies on this node
+            # where the consumer's were on another
+            spawn_task(free_frames(self.backend, self.take_frames(0)))
         if self.rs.on_done is not None:
             try:
                 self.rs.on_done()
@@ -434,6 +472,8 @@ class _PushBinding:
                         self.replay.append((self.sent, it))
                         self.sent += 1
                         wire.append(await self._encode(it))
+                        if self.rs.free_frames and wire[-1][0] == _KIND_OID:
+                            self.frame_oids[self.sent - 1] = wire[-1][1]
                 except asyncio.CancelledError:
                     raise
                 except ConnectionLost:
@@ -468,20 +508,48 @@ class _PushBinding:
             pass
 
     async def _encode(self, item: Any) -> Tuple:
-        """Inline small values; spill large byte payloads to plasma so
-        same-node consumers mmap them instead of copying through the
-        frame (the object-plane fast path)."""
-        size = _payload_size(item)
-        if size is None or size <= inline_max_bytes():
-            return (_KIND_VAL, item)
-        backend = self.backend
-        payload = backend.serde.serialize(item).to_bytes()
-        oid = global_worker().next_put_id()
-        backend.plasma.write_whole(oid, payload)
-        await backend._raylet.call(
-            "seal_object", {"oid": oid.hex(), "size": len(payload)})
-        ref = ObjectRef(oid, owner=backend.address)
-        return (_KIND_OID, ref._descriptor(), len(payload))
+        return await encode_item(self.backend, item)
+
+
+async def encode_item(backend, item: Any) -> Tuple:
+    """One item as a wire item: small values inline; large byte payloads
+    spilled to plasma so same-node consumers mmap them instead of copying
+    through the frame (the object-plane fast path). The payload is
+    serialized straight into the store's buffer (one copy of its bytes)
+    on an executor thread, so the loop keeps serving credits and frames
+    meanwhile. ``take_decoded_wire`` decodes it. Runs on the producer's
+    event loop."""
+    size = _payload_size(item)
+    if size is None or size <= inline_max_bytes():
+        return (_KIND_VAL, item)
+    oid = global_worker().next_put_id()
+
+    def spill() -> int:
+        so = backend.serde.serialize(item)
+        n = so.total_bytes()
+        so.write_to(backend.plasma.create(oid, n))
+        backend.plasma.seal(oid)
+        # consumers map the sealed file themselves: this process keeps no
+        # map, so the pages go when the object is freed
+        backend.plasma.release(oid)
+        return n
+
+    n = await asyncio.get_running_loop().run_in_executor(None, spill)
+    await backend._raylet.call("seal_object", {"oid": oid.hex(), "size": n})
+    ref = ObjectRef(oid, owner=backend.address)
+    return (_KIND_OID, ref._descriptor(), n)
+
+
+async def free_frames(backend, descriptors: List[Tuple]) -> None:
+    """Free oid frames' objects: this process's map of each, and the copy
+    in this node's store (the raylet's ``free_objects``)."""
+    if not descriptors:
+        return
+    refs = [ObjectRef._rehydrate(d) for d in descriptors]
+    for ref in refs:
+        backend.plasma.delete(ref.id())
+    await backend._raylet.call("free_objects",
+                               {"oids": [ref.hex() for ref in refs]})
 
 
 def _payload_size(item: Any) -> Optional[int]:
@@ -547,12 +615,13 @@ async def subscribe(backend, address: str, sid: str,
     return ch
 
 
-async def take_decoded(backend, ch: StreamChannel) -> Tuple[Any, bool]:
+async def take_decoded(backend, ch: StreamChannel,
+                       free: bool = False) -> Tuple[Any, bool]:
     """Next decoded item from a push channel: ``(item, False)`` or
     ``(None, True)`` at end of stream. Raises ChannelBroken on transport
     loss (the consumer falls back to pull) and re-raises a pushed error
     frame (stream failure transport, matching the pull path's
-    next_chunks contract)."""
+    next_chunks contract). ``free``: see ``take_decoded_wire``."""
     c = _chaos._STATE
     if c is not None:
         f = _chaos.maybe_fire("rpc.drop", target="stream_push")
@@ -561,20 +630,26 @@ async def take_decoded(backend, ch: StreamChannel) -> Tuple[Any, bool]:
     item = await ch.take()
     if item is CHANNEL_DONE:
         return (None, True)
-    return await take_decoded_wire(backend, item)
+    return await take_decoded_wire(backend, item, free)
 
 
-async def take_decoded_wire(backend, wire_item: Tuple) -> Tuple[Any, bool]:
+async def take_decoded_wire(backend, wire_item: Tuple,
+                            free: bool = False) -> Tuple[Any, bool]:
     """Decode one raw frame item: inline values pass through, oid frames
     resolve through the object plane (same-node: zero-copy mmap), error
-    frames re-raise the stream's failure."""
+    frames re-raise the stream's failure. ``free``: an oid frame's object
+    is freed once decoded (a stream whose frames have one reader)."""
     kind = wire_item[0]
     if kind == _KIND_VAL:
         return (wire_item[1], False)
     if kind == _KIND_OID:
         ref = ObjectRef._rehydrate(wire_item[1])
         payload = await backend._resolve_payload(ref, timeout=60.0)
-        return (backend.serde.deserialize_payload(payload), False)
+        value = backend.serde.deserialize_payload(payload)
+        if free:
+            del payload
+            await free_frames(backend, [wire_item[1]])
+        return (value, False)
     if kind == _KIND_ERR:
         err = backend.serde.deserialize_payload(memoryview(wire_item[1]))
         if isinstance(err, BaseException):

@@ -410,6 +410,16 @@ class LocalBackend(RuntimeBackend):
         validate_options(options, for_actor=True)
         name = options.get("name")
         ns = options.get("namespace") or self.namespace
+        req = resources_from_options(options, default_num_cpus=0)
+        actor_id = ActorID.of(self.job_id)
+        max_conc = options.get("max_concurrency") or 1
+        executor = _ActorExecutor(None, max_conc)
+        rec = _ActorRecord(actor_id, cls, name, ns, req, executor)
+        rec.method_meta = method_meta
+        # the name is checked and claimed in one step, and the record is
+        # published only once its executor runs with __init__ queued
+        # first: a thread that finds the actor by name (get_if_exists)
+        # can call it at once
         with self._lock:
             if name is not None and (ns, name) in self._named_actors:
                 if options.get("get_if_exists"):
@@ -417,17 +427,16 @@ class LocalBackend(RuntimeBackend):
                     rec = self._actors[aid]
                     return ActorHandle(aid, cls.__name__, rec.method_meta)
                 raise ValueError(f"actor name {name!r} already taken in namespace {ns!r}")
-        req = resources_from_options(options, default_num_cpus=0)
-        actor_id = ActorID.of(self.job_id)
-        max_conc = options.get("max_concurrency") or 1
-        executor = _ActorExecutor(None, max_conc)
-        rec = _ActorRecord(actor_id, cls, name, ns, req, executor)
-        rec.method_meta = method_meta
-        with self._lock:
+            self._start_actor(rec, cls, args, kwargs)
             self._actors[actor_id] = rec
             if name is not None:
                 self._named_actors[(ns, name)] = actor_id
         self._node.allocate(req) if self._node.can_fit(req) else None
+        return ActorHandle(actor_id, cls.__name__, method_meta, original_handle=True)
+
+    def _start_actor(self, rec, cls, args, kwargs) -> None:
+        """Start ``rec``'s executor with the instance's __init__ queued."""
+        executor = rec.executor
 
         import inspect
 
@@ -459,7 +468,6 @@ class LocalBackend(RuntimeBackend):
             asyncio.run_coroutine_threadsafe(_ainit(), executor._loop)
         else:
             executor.submit(do_init)
-        return ActorHandle(actor_id, cls.__name__, method_meta, original_handle=True)
 
     def submit_actor_task(self, actor_id, method_name, args, kwargs, num_returns):
         with self._lock:

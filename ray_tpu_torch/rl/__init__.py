@@ -8,9 +8,10 @@ model-based (MBMPO, DreamerV3), population-based (ES, ARS), search
 (AlphaZero, LeelaChessZero), sequence (the Decision Transformer), slate
 (SlateQ) and bandit (LinUCB, LinTS) algorithms, the pixel envs
 (``CatchPixels``, ``PixelWrapper``, ``FrameStack``), the fused PPO
-iteration, RLHF and the external-env policy server (HTTP, in process).
-One process, one device: JAX's actor layer (``LearnerGroup``) is not
-ported."""
+iteration, RLHF and the external-env policy server (HTTP). Where the
+port's runtime is initialized the runners, the ES/ARS and self-play
+workers, the RLHF roles and a ``LearnerGroup``'s learners are actors, as
+JAX's; without it an algorithm runs in one process on one device."""
 
 from ray_tpu_torch.rl.algorithm import Algorithm  # noqa: F401
 from ray_tpu_torch.rl.algorithms import (  # noqa: F401

@@ -2,25 +2,24 @@
 
 An ``Algorithm`` is a ``Trainable`` whose ``step()`` delegates to the
 per-algorithm ``training_step()``; ``AlgorithmConfig.build()`` makes one.
-JAX runs its EnvRunners as actors and gathers their results with
-``ray_tpu.get``; here the whole algorithm runs in one process on one
-device: the runners are plain objects in a list, a remote call is a
-method call, and the learner and the runners' policy forwards share the
-algorithm's device.
 
-Fault tolerance keeps JAX's semantics (``gather_tolerant``): a runner
-whose call raises loses that call's result for the iteration and is
-rebuilt from its constructor arguments, as an actor restart would, while
-it has restarts left (``max_env_runner_restarts`` when
-``restart_failed_env_runners``); the call raises only when every runner
-failed. External envs (``env="external://<port>"``) run
-``rl/policy_server.py``'s HTTP servers in this process as the runners;
-``stop()`` shuts them down.
+The runners are a ``rl/fleet.py:Fleet``: actors where the port's
+runtime is initialized (either backend), as JAX's, else objects in this
+process. Each ``EnvRunner`` (``ExternalEnvRunner`` for external envs)
+is created with ``num_cpus_per_runner``, ``runner_runtime_env`` and,
+where ``restart_failed_env_runners``, ``max_env_runner_restarts``
+restarts. Fault tolerance keeps JAX's semantics (``gather_tolerant``): a
+failed call's result is dropped for the iteration and the call raises
+only when every runner failed. ``num_learners > 0`` builds a
+``LearnerGroup`` of learner actors (``rl/learner.py``), which needs the
+runtime. ``stop()`` kills the runner and learner actors without restarts
+(an external runner's HTTP server shuts down with its actor, or in
+process).
 """
 
 from __future__ import annotations
 
-import logging
+import functools
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -34,13 +33,11 @@ from ray_tpu_torch.rl.config import AlgorithmConfig
 from ray_tpu_torch.rl.connectors import build_connectors
 from ray_tpu_torch.rl.env import EnvSpec, make_env
 from ray_tpu_torch.rl.env_runner import EnvRunner
+from ray_tpu_torch.rl.fleet import Fleet
 from ray_tpu_torch.rl.learner import Learner, LearnerGroup
 from ray_tpu_torch.rl.policy_server import ExternalEnvRunner
 from ray_tpu_torch.rl.rl_module import Catalog
 from ray_tpu_torch.tune.trainable import Trainable
-
-logger = logging.getLogger("ray_tpu_torch.rl")
-
 
 class DeviceTrainable(Trainable):
     """A Trainable whose params live on one device (``cuda`` unless
@@ -95,34 +92,30 @@ class Algorithm(DeviceTrainable):
                     "config.connectors or filter client-side")
             self.spec = EnvSpec(**spec_kwargs)
             port = int(cfg.env.split("://", 1)[1] or 0)
-            self._runner_args = [
+            # JAX's external runners are actors without restarts
+            self.fleet = self._runner_fleet(ExternalEnvRunner, [
                 dict(port=port + i if port else 0, spec=dict(spec_kwargs),
                      rollout_len=cfg.rollout_fragment_length,
                      num_slots=cfg.num_envs_per_runner, gamma=cfg.gamma,
-                     lam=cfg.lambda_, seed=cfg.seed + 1000 * i,
-                     device=self.device)
-                for i in range(n_runners)]
-            # JAX's external runners are actors without restarts
-            self._restarts_left = [0] * n_runners
-            self.runners = [ExternalEnvRunner(**kw)
-                            for kw in self._runner_args]
+                     lam=cfg.lambda_, seed=cfg.seed + 1000 * i)
+                for i in range(n_runners)], 0)
             # bind now so callers can fetch ports before training starts
-            self.server_ports = [r.ready() for r in self.runners]
+            self.server_ports = self.fleet.gather("ready",
+                                                  [()] * n_runners)
         else:
             # probe the env spec
             self.spec = make_env(cfg.env, 1, cfg.env_config).spec
             restarts = (cfg.max_env_runner_restarts
                         if cfg.restart_failed_env_runners else 0)
-            self._runner_args = [
+            self.fleet = self._runner_fleet(EnvRunner, [
                 dict(env_name=cfg.env, num_envs=cfg.num_envs_per_runner,
                      rollout_len=cfg.rollout_fragment_length,
                      gamma=cfg.gamma, lam=cfg.lambda_,
                      seed=cfg.seed + 1000 * i, env_config=cfg.env_config,
-                     explore=self.explore_mode, connectors=cfg.connectors,
-                     device=self.device)
-                for i in range(n_runners)]
-            self._restarts_left = [restarts] * n_runners
-            self.runners = [EnvRunner(**kw) for kw in self._runner_args]
+                     explore=self.explore_mode, connectors=cfg.connectors)
+                for i in range(n_runners)], restarts)
+            # a runner actor that cannot be created fails here
+            self.fleet.gather("get_spec", [()] * n_runners)
         # the algorithm's own pipeline skeleton: holds/merges the global
         # connector state the runners sync through (reference: filter
         # deltas flushed to the algorithm and re-broadcast each iteration)
@@ -133,6 +126,23 @@ class Algorithm(DeviceTrainable):
         self._env_steps_total = 0
         self._return_window: List[float] = []
         self.build_learner()
+
+    def _runner_fleet(self, cls, args: List[Dict[str, Any]],
+                      restarts: int) -> Fleet:
+        cfg = self.config
+        return Fleet(cls, args, self.device,
+                     num_cpus=cfg.num_cpus_per_runner,
+                     runtime_env=cfg.runner_runtime_env,
+                     max_restarts=restarts)
+
+    @property
+    def runners(self) -> List:
+        """The runners: actor handles, or the objects themselves."""
+        return self.fleet.members
+
+    @property
+    def _restarts_left(self) -> List[int]:
+        return self.fleet.restarts_left
 
     def build_learner(self) -> None:
         raise NotImplementedError
@@ -159,42 +169,16 @@ class Algorithm(DeviceTrainable):
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         return models.init_policy(gen, self.spec, cfg.hidden)
 
-    def call_runner(self, i: int, method: str, *args):
-        """``runners[i].method(*args)``; when it raises, the runner is
-        rebuilt from its constructor arguments if it has restarts left,
-        and the error propagates (the call's result is lost)."""
-        try:
-            return getattr(self.runners[i], method)(*args)
-        except Exception:
-            if self._restarts_left[i] > 0:
-                self._restarts_left[i] -= 1
-                self.runners[i] = EnvRunner(**self._runner_args[i])
-            raise
-
     def gather_tolerant(self, method: str, *args) -> List:
-        """``method(*args)`` on every runner, DROPPING failed results
-        instead of failing the iteration (reference:
-        FaultTolerantActorManager.foreach_worker). Raises only when every
-        runner failed."""
-        out, last_err = [], None
-        for i in range(len(self.runners)):
-            try:
-                out.append(self.call_runner(i, method, *args))
-            except Exception as e:  # noqa: BLE001 — result lost, not fatal
-                last_err = e
-                logger.warning("env-runner %d %s failed (%s: %s) — "
-                               "dropping its result; the runner is rebuilt "
-                               "if it has restarts left", i, method,
-                               type(e).__name__, str(e)[:120])
-        if not out and self.runners:
-            raise last_err
-        return out
+        """``method(*args)`` on every runner, dropping failed results
+        (``Fleet.gather_tolerant``)."""
+        return self.fleet.gather_tolerant(method, *args)
 
     def synchronous_sample(self, params) -> Dict[str, np.ndarray]:
         """``sample`` on every runner, fragments concatenated (reference:
         ``rollout_ops.synchronous_parallel_sample``); a failed runner's
         fragment is dropped for the iteration."""
-        batches = self.gather_tolerant("sample", params)
+        batches = self.gather_tolerant("sample", self.fleet.put(params))
         self._sync_connectors()
         batch = {k: np.concatenate([b[k] for b in batches])
                  for k in batches[0]}
@@ -221,8 +205,8 @@ class Algorithm(DeviceTrainable):
             pass
 
     def _set_fleet_connectors(self, state) -> None:
-        for r in self.runners:
-            r.set_connector_globals(state)
+        self.fleet.gather("set_connector_globals",
+                          [(state,)] * len(self.fleet))
 
     def collect_episode_stats(self) -> Dict[str, float]:
         stats = self.gather_tolerant("episode_stats")
@@ -317,21 +301,28 @@ class Algorithm(DeviceTrainable):
                 "episode_return_mean": mean_ret}
 
     def stop(self) -> None:
-        """Release the runners (JAX kills their actors); an external
-        runner's HTTP server shuts down."""
-        for r in self.runners:
-            if isinstance(r, ExternalEnvRunner):
-                r.shutdown()
-        self.runners = []
+        """Release the fleet (``Fleet.kill``) and a ``LearnerGroup``'s
+        actors."""
+        fleet = getattr(self, "fleet", None)
+        if fleet is not None:
+            fleet.kill()
+        learner = getattr(self, "learner", None)
+        if isinstance(learner, LearnerGroup):
+            learner.stop()
 
 
 def make_learner(algo: Algorithm, loss_fn: Callable):
     """PPO's and A2C's learner on the algorithm's device; where
-    ``num_learners > 0`` JAX builds a ``LearnerGroup`` of actors, which
-    the port refuses (ROADMAP item R2)."""
+    ``num_learners > 0`` a ``LearnerGroup`` of learner actors, each on
+    the algorithm's device type with ``num_gpus_per_learner`` GPUs."""
     cfg = algo.config
     if cfg.num_learners > 0:
-        return LearnerGroup(cfg.num_learners, cfg.num_tpus_per_learner)
+        ctor = functools.partial(
+            Learner, models.host_tree(algo.init_policy_params()), loss_fn,
+            cfg.lr,
+            grad_clip=cfg.grad_clip, seed=cfg.seed)
+        return LearnerGroup(ctor, cfg.num_learners,
+                            cfg.num_gpus_per_learner, device=algo.device)
     return Learner(algo.init_policy_params(), loss_fn, cfg.lr,
                    grad_clip=cfg.grad_clip, seed=cfg.seed,
                    device=algo.device)

@@ -6,8 +6,9 @@ al. 2018). The three Ape-X signatures:
 
 1. **Async sampling fleet.** JAX's runners keep producing fragments under
    slightly stale params and the learner consumes them in the order
-   ``ray_tpu.wait`` gives. In one process that staleness is reproduced
-   deterministically by ``impala.py``'s ``RoundRobinFleet``: each runner
+   ``ray_tpu.wait`` gives, as ``impala.py``'s ``RoundRobinFleet`` does
+   on the port's runner actors. In one process that staleness is
+   reproduced deterministically by the same fleet: each runner
    in flight holds the params it was submitted with (a snapshot), the
    runners are consumed round robin, each sampled at consume time with
    its snapshot and resubmitted with the current params before the

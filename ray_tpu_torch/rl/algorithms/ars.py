@@ -10,9 +10,10 @@ the shared ``_ESWorker``), (b) only the top-b directions by
 max(r+, r-) contribute to the update, and the step is scaled by the
 standard deviation of the selected returns.
 
-The workers are ES's plain in-process objects: the filter is merged from
-each worker's ``[count, sum, sumsq]`` delta in worker order and set back
-on every worker, as JAX does through its actors.
+The workers are ES's (actors where the port's runtime is initialized,
+else objects in process): the filter is merged from each worker's
+``[count, sum, sumsq]`` delta in worker order and set back on every
+worker, as JAX does through its actors.
 """
 
 from __future__ import annotations
@@ -65,12 +66,12 @@ class ARS(ES):
     def _broadcast_filter(self) -> None:
         mean = self._f_sum / self._f_count
         var = np.maximum(self._f_sumsq / self._f_count - mean ** 2, 1e-8)
-        for w in self._workers:
-            w.set_filter(mean, var)
+        self.worker_fleet.gather("set_filter",
+                                 [(mean, var)] * len(self.worker_fleet))
 
     def _merge_filter_deltas(self) -> None:
-        for w in self._workers:
-            dlt = w.pop_filter_delta()
+        for dlt in self.worker_fleet.gather(
+                "pop_filter_delta", [()] * len(self.worker_fleet)):
             self._f_count += float(dlt[0][0])
             self._f_sum += dlt[1]
             self._f_sumsq += dlt[2]

@@ -8,10 +8,13 @@ estimate). Noise is reconstructed from integer seeds on both sides (the
 reference's SharedNoiseTable trick), and each worker evaluates its
 perturbation over its own env.
 
-JAX's workers are actors; here they are plain objects in one process,
-called round robin in submission order, which is the order in which JAX's
-``ray_tpu.get`` returns their results, so an iteration equals JAX's. A
-worker acts with one device forward and one host read per env step.
+JAX's workers are actors, and so are the port's where its runtime is
+initialized (``rl/fleet.py:Fleet``; a worker actor holds no GPU and acts
+on the CPU); without a runtime they are plain objects in one process.
+Either way the pairs go to the workers round robin and the results come
+back in submission order, the order of JAX's ``ray_tpu.get`` of the list
+(``Fleet.gather``), so an iteration equals JAX's. A worker acts with one
+device forward and one host read per env step.
 
 The center is a float64 numpy vector laid out as JAX's
 ``jax.tree_util.tree_flatten`` lays out the policy tree: dict keys sorted
@@ -32,6 +35,7 @@ from ray_tpu_torch.rl import models
 from ray_tpu_torch.rl.algorithm import Algorithm
 from ray_tpu_torch.rl.config import AlgorithmConfig
 from ray_tpu_torch.rl.env import make_env
+from ray_tpu_torch.rl.fleet import Fleet
 
 
 class ESConfig(AlgorithmConfig):
@@ -196,15 +200,24 @@ class ES(Algorithm):
                                     cfg.hidden)
         self._center, self._meta = _flatten(params)
         n_workers = max(1, cfg.num_env_runners)
-        self._workers = [
-            _ESWorker(cfg.env, cfg.env_config, cfg.seed + 7919 * i,
-                      cfg.hidden, cfg.noise_std, cfg.max_episode_len,
-                      getattr(cfg, "normalize_obs", False),
-                      device=self.device)
-            for i in range(n_workers)
-        ]
+        self.worker_fleet = Fleet(_ESWorker, [
+            dict(env_name=cfg.env, env_config=cfg.env_config,
+                 seed=cfg.seed + 7919 * i, hidden=cfg.hidden,
+                 noise_std=cfg.noise_std, max_len=cfg.max_episode_len,
+                 normalize_obs=getattr(cfg, "normalize_obs", False))
+            for i in range(n_workers)], self.device)
         self._rng = np.random.default_rng(cfg.seed)
         self.learner = self  # Algorithm.save/restore reach params via us
+
+    @property
+    def _workers(self) -> List:
+        return self.worker_fleet.members
+
+    def stop(self) -> None:
+        fleet = getattr(self, "worker_fleet", None)
+        if fleet is not None:
+            fleet.kill()
+        super().stop()
 
     def get_params(self):
         return _unflatten(self._center, self._meta, self.device)
@@ -216,9 +229,9 @@ class ES(Algorithm):
         """``evaluate`` of each seed's pair on the workers round robin, in
         submission order (JAX's order of results)."""
         cfg = self.config
-        return [self._workers[i % len(self._workers)].evaluate(
-            self._center, seeds[i], cfg.episodes_per_perturbation)
-            for i in range(len(seeds))]
+        return self.worker_fleet.gather(
+            "evaluate", [(self._center, seed, cfg.episodes_per_perturbation)
+                         for seed in seeds])
 
     def _draw_seeds(self) -> List[int]:
         return [int(s) for s in self._rng.integers(
@@ -228,11 +241,10 @@ class ES(Algorithm):
         """Whole episodes at the unperturbed center parameters. Discards
         the workers' obs-filter deltas afterward so evaluation episodes
         never shift ARS's fleet normalization statistics."""
-        rets = [self._workers[i % len(self._workers)]
-                .episode_return(self._center)[0]
-                for i in range(num_episodes)]
-        for w in self._workers:
-            w.pop_filter_delta()
+        fleet = self.worker_fleet
+        rets = [r[0] for r in fleet.gather("episode_return",
+                                           [(self._center,)] * num_episodes)]
+        fleet.gather("pop_filter_delta", [()] * len(fleet))
         return {"episodes": num_episodes,
                 "episode_return_mean": float(np.mean(rets))}
 

@@ -3,7 +3,8 @@
 
 JAX keeps every runner sampling asynchronously under the params it was
 submitted with and consumes fragments in the order ``ray_tpu.wait`` gives.
-In one process that staleness is reproduced deterministically: each
+On the port's runner actors so does the port (``RoundRobinFleet``). In
+one process that staleness is reproduced deterministically: each
 runner in flight holds a snapshot of the params taken when it was
 submitted; the runners are consumed round robin, each sampled at consume
 time with its snapshot, and resubmitted with the current params BEFORE the
@@ -97,32 +98,29 @@ class RoundRobinFleet:
     (JAX resubmits before the learner's update). A failed runner's
     fragment is dropped and the (rebuilt) runner resubmitted (reference:
     FaultTolerantActorManager); one that fails
-    ``_MAX_CONSECUTIVE_FAILURES`` times in a row leaves the rotation."""
+    ``_MAX_CONSECUTIVE_FAILURES`` times in a row leaves the rotation.
+
+    On runner actors the fleet is JAX's: each runner samples as soon as
+    it is submitted, and the fragments are consumed in ``wait`` order,
+    each runner resubmitted with the current params before its fragment
+    is yielded."""
 
     # a runner that keeps failing would otherwise be resubmitted forever
     _MAX_CONSECUTIVE_FAILURES = 3
 
     def _init_fleet(self) -> None:
-        # runner index -> the params it was submitted with
+        # runner index -> its submitted ``sample`` (``Fleet.submit``)
         self._inflight: Dict[int, Any] = {}
         self._runner_failures: Dict[int, int] = {}
-        self._next_runner = 0
 
     def _submit(self, i: int) -> None:
         if self._runner_failures.get(i, 0) \
                 >= self._MAX_CONSECUTIVE_FAILURES:
             return  # evicted from rotation
-        self._inflight[i] = models.clone_tree(self._params_for(i))
-
-    def _next_in_flight(self) -> int:
-        """The next in-flight runner, round robin."""
-        n = len(self.runners)
-        for k in range(n):
-            i = (self._next_runner + k) % n
-            if i in self._inflight:
-                self._next_runner = (i + 1) % n
-                return i
-        raise RuntimeError("no runner in flight")
+        # a snapshot: in process the call runs when it is consumed
+        params = models.clone_tree(self._params_for(i))
+        self._inflight[i] = self.fleet.submit(i, "sample",
+                                              self.fleet.put(params))
 
     def _consume_round(self, label: str) -> Iterator[Dict]:
         """One fragment from each runner in flight, in turn; each counts
@@ -137,10 +135,10 @@ class RoundRobinFleet:
         for _ in range(len(self.runners)):
             if not self._inflight:
                 break
-            i = self._next_in_flight()
-            snapshot = self._inflight.pop(i)
+            i = self.fleet.next_ready(self._inflight)
+            pending = self._inflight.pop(i)
             try:
-                batch = self.call_runner(i, "sample", snapshot)
+                batch = self.fleet.get(pending)
             except Exception as e:  # noqa: BLE001 — fragment lost, not fatal
                 logger.warning(
                     "%s runner %d fragment lost (%s: %s) — resubmitting",

@@ -23,12 +23,15 @@ module adds over ``alphazero.py``:
 The MCTS, ``Game`` protocol, and self-play loop are shared with
 ``alphazero.py`` (``play_selfplay_game``).
 
-JAX's self-play workers are actors; here they are plain objects in one
-process, seeded ``seed + 97 * i`` as JAX seeds its actors, each playing
-its share of the games in turn under the learner's params (the same
-tensors, read by every worker: nothing is copied). The importance-weighted
-loss returns the per-sample ``|v - z|``, read to the host once per update
-for the priority refresh.
+JAX's self-play workers are actors, seeded ``seed + 97 * i``; so are
+the port's where its runtime is initialized (a ``rl/fleet.py:Fleet``:
+each gets the learner's params as host tensors and predicts on the CPU),
+else they are plain objects in one process reading the learner's tensors
+(nothing is copied). Each plays its share of the games under those
+params, and the results are taken in submission order, as JAX's
+``ray_tpu.get`` of the list takes them, so an iteration is the same
+either way. The importance-weighted loss returns the per-sample
+``|v - z|``, read to the host once per update for the priority refresh.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from ray_tpu_torch.rl.algorithms.alphazero import (
     predict_on,
 )
 from ray_tpu_torch.rl.config import AlgorithmConfig
+from ray_tpu_torch.rl.fleet import Fleet
 from ray_tpu_torch.rl.learner import Learner
 from ray_tpu_torch.rl.replay_buffer import PrioritizedReplayBuffer
 
@@ -222,18 +226,23 @@ class LeelaChessZero(AlphaZero):
                         root_noise_eps=cfg.root_noise_eps,
                         temperature_moves=cfg.temperature_moves)
         game_name = cfg.env if isinstance(cfg.env, str) else "connect4"
-        self.workers = [
-            SelfPlayWorker(game_name, mcts_cfg, cfg.seed + 97 * i,
-                           self.device)
-            for i in range(max(1, cfg.num_workers))]
+        self.worker_fleet = Fleet(SelfPlayWorker, [
+            dict(game_name=game_name, mcts_cfg=mcts_cfg,
+                 seed=cfg.seed + 97 * i)
+            for i in range(max(1, cfg.num_workers))], self.device)
+
+    @property
+    def workers(self) -> List:
+        return self.worker_fleet.members
 
     def step(self) -> Dict[str, Any]:
         cfg = self.config
-        params = self.learner.get_params()
-        for w in self.workers:
-            w.set_params(params)
-        per = max(1, cfg.games_per_iter // len(self.workers))
-        results = [w.play(per) for w in self.workers]
+        fleet = self.worker_fleet
+        n = len(fleet)
+        fleet.gather("set_params",
+                     [(fleet.put(self.learner.get_params()),)] * n)
+        per = max(1, cfg.games_per_iter // n)
+        results = fleet.gather("play", [(per,)] * n)
         outcomes: List[float] = []
         for batch, moves, outs in results:
             self.buffer.add_batch(batch)
@@ -256,7 +265,7 @@ class LeelaChessZero(AlphaZero):
         return metrics
 
     def cleanup(self) -> None:
-        self.workers = []
+        self.worker_fleet.kill()
 
     def stop(self) -> None:
         """Alias matching the Algorithm surface (tests/CLI call stop())."""

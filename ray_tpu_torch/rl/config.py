@@ -6,13 +6,15 @@ Reference analog: ``rllib/algorithms/algorithm_config.py`` — chainable
 Algorithm. Flat dict overrides (from Tune param spaces) map onto fields via
 ``update_from_dict``.
 
-The port runs an algorithm in one process: its runners are plain objects
-and its learner sits on the algorithm's device. Every field of JAX's config
-is kept, so configs written for JAX (the tuned examples) load unchanged;
-the fields that only JAX's actor layer reads (``num_cpus_per_runner``,
-``runner_runtime_env``, ``num_tpus_per_learner``) are accepted and unused
-here, and ``num_learners > 0`` (a ``LearnerGroup`` of actors) is refused
-by the algorithms that would build one.
+Every field of JAX's config is kept, so configs written for JAX (the
+tuned examples) load unchanged, with one rename: JAX's
+``num_tpus_per_learner`` is ``num_gpus_per_learner`` here, the GPU share
+each learner actor of a ``LearnerGroup`` reserves (GPUs are the port's
+per-instance accelerator); ``update_from_dict`` and ``resources`` still
+take JAX's name for it. ``num_cpus_per_runner``, ``runner_runtime_env``
+and ``max_env_runner_restarts`` are the runner actors' options when the
+port's runtime is initialized; without it the runners are plain objects
+in the algorithm's process (``rl/algorithm.py``).
 """
 
 from __future__ import annotations
@@ -34,12 +36,13 @@ class AlgorithmConfig:
     num_env_runners: int = 1
     num_envs_per_runner: int = 8
     rollout_fragment_length: int = 64
-    num_cpus_per_runner: float = 1     # unused in one process (actors)
-    # runtime_env for JAX's EnvRunner actors; unused in one process
+    num_cpus_per_runner: float = 1     # each runner actor's CPUs
+    # each runner actor's runtime_env
     runner_runtime_env: Optional[dict] = None
     # Fleet fault tolerance (reference: FaultTolerantActorManager,
-    # rllib/utils/actor_manager.py): a runner whose call raises is rebuilt
-    # from its constructor arguments while it has restarts left, and its
+    # rllib/utils/actor_manager.py): a runner whose call raises restarts
+    # (its actor's max_restarts; in one process it is rebuilt from its
+    # constructor arguments) while it has restarts left, and its
     # fragment is dropped for the iteration instead of killing the
     # training loop.
     restart_failed_env_runners: bool = True
@@ -98,7 +101,7 @@ class AlgorithmConfig:
     # multi-agent
     policy_mapping_fn: Any = None      # agent_id -> policy_id (None = identity)
     # resources
-    num_tpus_per_learner: float = 0    # unused in one process (actors)
+    num_gpus_per_learner: float = 0    # each learner actor's GPU share
     num_learners: int = 0              # 0 => learner runs in the algo process
 
     # ---- fluent builders ----
@@ -130,10 +133,15 @@ class AlgorithmConfig:
     def training(self, **kwargs) -> "AlgorithmConfig":
         return self.update_from_dict(kwargs)
 
-    def resources(self, num_tpus_per_learner: Optional[float] = None,
-                  num_learners: Optional[int] = None) -> "AlgorithmConfig":
+    def resources(self, num_gpus_per_learner: Optional[float] = None,
+                  num_learners: Optional[int] = None, *,
+                  num_tpus_per_learner: Optional[float] = None
+                  ) -> "AlgorithmConfig":
+        """``num_tpus_per_learner`` is JAX's name for the share."""
         if num_tpus_per_learner is not None:
-            self.num_tpus_per_learner = num_tpus_per_learner
+            num_gpus_per_learner = num_tpus_per_learner
+        if num_gpus_per_learner is not None:
+            self.num_gpus_per_learner = num_gpus_per_learner
         if num_learners is not None:
             self.num_learners = num_learners
         return self
@@ -147,6 +155,8 @@ class AlgorithmConfig:
         for k, v in d.items():
             if k == "lambda":
                 k = "lambda_"
+            elif k == "num_tpus_per_learner":
+                k = "num_gpus_per_learner"
             if not hasattr(self, k):
                 raise ValueError(f"unknown config key {k!r}")
             setattr(self, k, v)

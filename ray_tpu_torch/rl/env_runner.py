@@ -1,8 +1,12 @@
 """EnvRunner: the sampling worker (port of ``ray_tpu/rl/env_runner.py``).
 
-JAX runs each EnvRunner as an actor (``@ray_tpu.remote``); here it is a
-plain object that an ``Algorithm`` holds in a list, and a remote call is a
-method call. The architecture is JAX's: a numpy vector env on the host,
+JAX runs each EnvRunner as an actor (``@ray_tpu.remote``). The port's
+``Algorithm`` does too where its runtime is initialized
+(``ray_tpu_torch.remote(EnvRunner)``: the class is a plain class and the
+algorithm makes it an actor, on the CPU since a runner actor holds no
+GPU); without a runtime it holds runners as plain objects in a list, and
+a remote call is a method call. The architecture is JAX's: a numpy
+vector env on the host,
 and per env step one policy forward on the runner's device whose actions
 are read back to the host for the env (``rl/anakin.py``'s
 ``bench_fused_vs_host`` measures what that costs). The step's logp and
@@ -116,7 +120,8 @@ class EnvRunner:
         return models.value(params, obs)
 
     def get_pid(self) -> int:
-        """The process id (one process: the algorithm's own)."""
+        """The process id of the runner (an actor's, or the algorithm's
+        own in process)."""
         return os.getpid()
 
     def get_spec(self):

@@ -24,13 +24,23 @@ normalise each shard by its own moments instead. A loss that draws noise
 from the learner's generator (SAC, CQL, CRR, TD3) draws it through
 ``models.noise_on_mesh``: each draw is the global noise as a replicated
 DTensor, the same on every rank, as JAX's replicated key draws it.
-``LearnerGroup`` (learner actors syncing gradients through the cluster's
-collectives) waits for RL on the port's actors (ROADMAP item R2).
+
+``LearnerGroup`` is JAX's group of learner actors on the port's runtime:
+N ``_LearnerActor`` members of a collective group declared on the
+runtime (``collective.create_collective_group``; the host plane: gloo on
+the cluster backend, the in-process plane on the local one). Rank 0's
+initial params are broadcast, and each member's ``Learner`` gets a
+gradient sync that allreduces every minibatch's gradients as one flat
+host copy and divides by the world size before clipping and Adam (DDP:
+params and Adam moments stay identical across members). Each member
+runs its learner on ``cuda`` with its GPU share, or on the CPU where the
+caller asked for it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+import os
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -68,6 +78,15 @@ def clip_global_norm(grads, max_norm: float):
     norm = torch.sqrt(sum(torch.sum(g * g) for g in leaves))
     scale = torch.clamp(max_norm / (norm + 1e-8), max=1.0)
     return models.tree_map(lambda g: g * scale, grads), norm
+
+
+def _writable(x):
+    """``x``, copied where it is a read-only numpy array (one read from
+    the object store maps its bytes read-only; a tensor must not alias
+    them)."""
+    if isinstance(x, np.ndarray) and not x.flags.writeable:
+        return x.copy()
+    return x
 
 
 def mean_metrics(metrics: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
@@ -123,7 +142,7 @@ class Learner:
         self._grad_sync = grad_sync
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v, device=self.device)
+        return {k: torch.as_tensor(_writable(v), device=self.device)
                 for k, v in batch.items()}
 
     def update_minibatch(self, batch: Dict) -> Dict[str, torch.Tensor]:
@@ -200,11 +219,155 @@ class Learner:
         self.params = models.params_to_device(params, self.device)
 
 
-class LearnerGroup:
-    """JAX's data-parallel group of learner actors: not ported yet
-    (ROADMAP item R2, RL on the port's actors)."""
+class _LearnerActor:
+    """One member of a LearnerGroup: a local ``Learner`` whose gradients
+    are allreduced across the group every minibatch (data parallel)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LearnerGroup (num_learners > 0) needs learner actors on the "
-            "port's runtime, which are not ported yet (ROADMAP item R2)")
+    def __init__(self, rank: int, world: int, group: str,
+                 learner_ctor: Callable[..., Learner], device: str):
+        from ray_tpu_torch import collective as col
+
+        self._rank, self._world, self._group = rank, world, group
+        col.init_collective_group(world, rank, group)
+        self._learner: Learner = learner_ctor(device=device)
+        self._sync_params()
+        self._learner.set_grad_sync(self._allreduce_grads)
+
+    def _allreduce_grads(self, grads):
+        """The group's mean gradient: one allreduce of every leaf's host
+        copy, flattened and concatenated, then divided by the world."""
+        from ray_tpu_torch import collective as col
+
+        leaves = models._leaves(grads)
+        flat = torch.cat([g.detach().reshape(-1).cpu()
+                          for g in leaves.values()])
+        flat = col.allreduce(flat, self._group) / self._world
+        out, start = {}, 0
+        for name, g in leaves.items():
+            out[name] = flat[start:start + g.numel()].reshape(g.shape).to(
+                g.device)
+            start += g.numel()
+        return _unflatten_like(grads, out)
+
+    def _sync_params(self) -> None:
+        """Rank 0's params on every member, so all start identical."""
+        from ray_tpu_torch import collective as col
+
+        params = self._learner.params
+        host = {name: col.broadcast(t.detach().cpu(), 0, self._group)
+                for name, t in models._leaves(params).items()}
+        self._learner.set_params(_unflatten_like(params, host))
+
+    def ping(self) -> int:
+        return self._rank
+
+    def update(self, shard, num_epochs: int, minibatch_size: int,
+               seed: int) -> Dict[str, float]:
+        # the gradients are allreduced per minibatch, so params and Adam
+        # moments stay identical across members: no param averaging
+        return self._learner.update(
+            shard, num_epochs=num_epochs, minibatch_size=minibatch_size,
+            seed=seed)
+
+    def get_params(self):
+        """The params as host tensors (the caller may have no GPU)."""
+        return models.params_to_device(self._learner.params, "cpu")
+
+    def set_params(self, params) -> None:
+        # a copy: on the local backend every member gets the same tree,
+        # and an update marks its leaves as requiring grad in place
+        self._learner.set_params(models.clone_tree(params))
+
+
+def _get_in_completion_order(refs: List[Any]) -> List[Any]:
+    """The refs' values in their order, read as they complete: the first
+    member to fail raises its own error, not a peer's collective timeout
+    while it waits for the failed member."""
+    import ray_tpu_torch as rt
+
+    values, pending = {}, list(refs)
+    while pending:
+        ready, pending = rt.wait(pending, num_returns=1)
+        values[ready[0]] = rt.get(ready[0])
+    return [values[r] for r in refs]
+
+
+class LearnerGroup:
+    """N learner actors doing data-parallel updates with host collectives
+    (JAX's). ``learner_ctor(device=...)`` builds one member's ``Learner``
+    on ``device`` (``cuda`` unless given); on ``cuda`` each member
+    reserves ``num_gpus_per_learner`` GPUs (a fraction shares a card), on
+    the CPU none. Needs the port's runtime: without one it raises the
+    runtime's "not initialized" error, as JAX's does."""
+
+    _counter = 0
+
+    def __init__(self, learner_ctor: Callable[..., Learner],
+                 num_learners: int, num_gpus_per_learner: float = 0,
+                 device: DeviceLike = None):
+        import ray_tpu_torch as rt
+        from ray_tpu_torch import collective as col
+
+        dev = resolve_device(device)
+        LearnerGroup._counter += 1
+        group = f"learner_group_{os.getpid()}_{LearnerGroup._counter}"
+        col.create_collective_group(num_learners, group)
+        opts: Dict[str, Any] = {}
+        if dev.type == "cuda":
+            if not num_gpus_per_learner:
+                raise ValueError(
+                    "a LearnerGroup on cuda needs num_gpus_per_learner > 0 "
+                    "(a fraction shares a card); pass device='cpu' for "
+                    "learners on the CPU")
+            opts["num_gpus"] = num_gpus_per_learner
+        cls = rt.remote(_LearnerActor)
+        cls = cls.options(**opts) if opts else cls
+        self._actors = [cls.remote(i, num_learners, group, learner_ctor,
+                                   dev.type)
+                        for i in range(num_learners)]
+
+    @property
+    def actors(self) -> List[Any]:
+        return list(self._actors)
+
+    def update(self, batch, *, num_epochs: int = 1,
+               minibatch_size: Optional[int] = None,
+               seed: int = 0) -> Dict[str, float]:
+        import ray_tpu_torch as rt
+
+        n = len(next(iter(batch.values())))
+        world = len(self._actors)
+        # equal shards (the remainder dropped): the per-minibatch
+        # allreduce is rank-synchronous, so every learner must run the
+        # same number of minibatches or the group deadlocks
+        n_even = n - (n % world)
+        mb = minibatch_size or n_even // world
+        results = _get_in_completion_order([
+            a.update.remote(
+                {k: v[i:n_even:world] for k, v in batch.items()},
+                num_epochs, mb, seed)
+            for i, a in enumerate(self._actors)])
+        return {k: float(np.mean([r[k] for r in results]))
+                for k in results[0]}
+
+    def get_params(self):
+        import ray_tpu_torch as rt
+
+        return rt.get(self._actors[0].get_params.remote())
+
+    def set_params(self, params) -> None:
+        import ray_tpu_torch as rt
+
+        params = models.params_to_device(params, "cpu")
+        rt.get([a.set_params.remote(params) for a in self._actors])
+
+    def stop(self) -> None:
+        """Kill the learner actors (no restart)."""
+        import ray_tpu_torch as rt
+
+        for a in self._actors:
+            try:
+                rt.kill(a, no_restart=True)
+            except Exception:  # noqa: BLE001 — teardown best-effort
+                pass
+        self._actors = []

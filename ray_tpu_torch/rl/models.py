@@ -49,6 +49,14 @@ def clone_tree(tree):
         tree)
 
 
+def host_tree(tree):
+    """A tree's tensor leaves on the host (other leaves kept): what an
+    actor without a GPU can read."""
+    return tree_map(
+        lambda x: x.detach().cpu() if isinstance(x, torch.Tensor) else x,
+        tree)
+
+
 def params_to_device(params, device: torch.device):
     """A params tree (numpy arrays or tensors) as float32 tensors on
     ``device``: numpy leaves are copied, tensors already there are kept."""

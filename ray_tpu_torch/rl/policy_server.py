@@ -11,8 +11,10 @@ and the experiences feed training.
 :class:`ray_tpu_torch.rl.env_runner.EnvRunner` (``sample(params)``
 returns a columnar batch with GAE), so on-policy algorithms swap it in by
 setting ``config.env = "external://<port>"``. JAX's runner is an actor
-serving aiohttp; the port's runners are plain objects in the algorithm's
-process, and this one serves JAX's four routes, JSON bodies and status
+serving aiohttp; the port's is an actor too where its runtime is
+initialized (the algorithm reads ``server_ports`` from ``ready.remote()``;
+killing the actor closes the server), else a plain object in the
+algorithm's process. It serves JAX's four routes, JSON bodies and status
 codes from a ``http.server.ThreadingHTTPServer`` on 127.0.0.1 in a daemon
 thread. The handler threads and ``sample`` share the episode state under
 one lock. Inference runs the port's ``rl/models.py`` policy on the

@@ -17,17 +17,33 @@ One iteration is four phases over four roles:
              streams finish under the old weights and the next generate
              phase decodes the new ones
 
-One-device placement. JAX places each role in its own actor of a
-placement group and moves the weights over its stream plane. The roles
-as actors of the port's runtime are a later slice (ROADMAP item R2):
-here the four roles are plain objects in one process,
-on one device (``cuda`` unless asked), called in JAX's phase order, and
-reward and reference score one after the other where JAX runs them in
-parallel. ``ship_weights`` returns a ticket holding a COPY of the policy
-in the generator's dtype (a snapshot: the learner updates its params in
-place), and ``sync_weights`` redeems it through ``load_params``; its
-receipt says ``"transport": "device"``. A failed sync drops the copy
-(``cancel_shipment``).
+Placement. When the port's runtime is initialized, the pipeline places
+the roles as JAX does: four actors (learner, reference, reward,
+generator, the generator with one restart) in one ``PACK`` placement
+group (``train/worker_group.RoleGroup("rlhf-<trace>")``), each bundle
+with ``cpus_per_role`` CPUs and ``gpus_per_role`` GPUs (by default, on
+``cuda``: a quarter of the one card each, or a card each where the
+cluster has four; on the CPU none); each role computes on ``cuda``
+unless the pipeline was asked for the CPU, all four are created before a
+readiness ``ping``, and reward and reference score in parallel. The
+learner ships a COPY of its policy in the generator's dtype with
+``collective.ship_params`` (the ticket carries the stream address, not
+the weights); the generator redeems it with ``fetch_params`` and swaps
+it in behind the engine's drain barrier; a failed sync cancels the
+shipment, and the producer's pump receipt joins the iteration record.
+The shipment's leaves above the stream's inline size travel through the
+node's object store, each freed once the generator has decoded it, so
+the store holds at most one shipment at a time (2.2 GB of bf16 at 1b),
+and less where the generator keeps up with the learner. ``ship_params``
+needs the cluster backend: on the local backend the first sync raises,
+as JAX's does.
+
+Without a runtime the four roles are plain objects in one process on
+one device (``cuda`` unless asked), called in JAX's phase order, reward
+and reference one after the other. ``ship_weights`` then returns a
+ticket holding the copy itself, ``sync_weights`` hands it to
+``load_params``, and the receipt says ``"transport": "device"``; a failed
+sync drops the copy (``cancel_shipment``).
 
 Aliasing. JAX's arrays are immutable, so each role's params are its own.
 The port updates in place, so every role owns a copy: params passed to a
@@ -53,12 +69,14 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+import ray_tpu_torch as rt
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.convert import (params_from_jax,
                                           reward_params_from_jax)
 from ray_tpu_torch.models.serving import ContinuousEngine
 from ray_tpu_torch.parallel.train_step import Adam, _leaves, value_and_grad
+from ray_tpu_torch.rl.models import host_tree
 from ray_tpu_torch.rl.rlhf import models as rlhf_models
 from ray_tpu_torch.util.pipeline_recorder import PipelineRecorder
 from ray_tpu_torch.util.recorder_core import Sinks
@@ -72,9 +90,9 @@ Preset = Union[str, llama.LlamaConfig]
 
 @dataclasses.dataclass
 class RLHFConfig:
-    """JAX's fields and defaults. ``preset`` may also be a
-    ``LlamaConfig`` (a preset with another attention backend or compute
-    dtype)."""
+    """JAX's fields and defaults, and ``gpus_per_role`` beside JAX's
+    ``cpus_per_role``. ``preset`` may also be a ``LlamaConfig`` (a preset
+    with another attention backend or compute dtype)."""
 
     preset: Preset = "debug"
     num_prompts: int = 4          # sequences per iteration
@@ -87,7 +105,10 @@ class RLHFConfig:
     clip_param: float = 0.2
     num_epochs: int = 2
     seed: int = 0
-    cpus_per_role: float = 1.0    # read by JAX's placement; unused here
+    cpus_per_role: float = 1.0    # each role actor's CPUs
+    # each role actor's GPUs: None = a quarter of one card on cuda, one
+    # card each where the cluster has four, none on the CPU
+    gpus_per_role: Optional[float] = None
 
     @property
     def max_len(self) -> int:
@@ -176,6 +197,8 @@ class RLHFLearner:
         self._opt_state = self._opt.init(self._params)
         self._updates = 0
 
+    def ping(self) -> str:
+        return "learner"
 
     def _loss(self, params, tokens, old_logp, adv, prompt_len):
         logp = rlhf_models.seq_logprob_body(params, tokens, prompt_len,
@@ -194,11 +217,10 @@ class RLHFLearner:
         weights-version."""
         t0 = time.time()
         dev = self.device
-        tokens = torch.as_tensor(np.asarray(sequences, np.int64), device=dev)
-        rewards = torch.as_tensor(np.asarray(rewards, np.float32),
-                                  device=dev)
-        ref_logps = torch.as_tensor(np.asarray(ref_logps, np.float32),
-                                    device=dev)
+        tokens = torch.tensor(np.asarray(sequences, np.int64), device=dev)
+        rewards = torch.tensor(np.asarray(rewards, np.float32), device=dev)
+        ref_logps = torch.tensor(np.asarray(ref_logps, np.float32),
+                                 device=dev)
         old_logp = rlhf_models.sequence_logprobs(
             self._params, tokens, prompt_len, self.cfg)
         # sequence-level objective: reward-model score minus the KL
@@ -227,23 +249,45 @@ class RLHFLearner:
                 "t0": t0, "t1": t1, "wall_s": round(t1 - t0, 6)}
 
     def ship_weights(self) -> Dict[str, Any]:
-        """Snapshot the current policy for the generator: a ticket holding
-        a copy of every leaf in the compute dtype (the engine's), the
-        weights-version, its leaf and byte counts and the ship stamp
+        """Snapshot the current policy for the generator: a copy of every
+        leaf in the compute dtype (the engine's), shipped with
+        ``collective.ship_params`` where the port's runtime is initialized
+        (a role actor; the ticket is then the shipment's), else held by
+        the ticket itself (one process); the ticket also carries the
+        weights-version, the leaf and byte counts and the ship stamp
         (after the copy has landed)."""
         t0 = time.time()
         copy = _copy_tree(self._params, self.device, self.cfg.compute_dtype)
         _sync(self.device)
+        if rt.is_initialized():
+            from ray_tpu_torch import collective
+
+            ticket = collective.ship_params(copy)
+        else:
+            leaves = _leaves(copy).values()
+            ticket = {"params": copy, "n_leaves": len(leaves),
+                      "nbytes": sum(t.numel() * t.element_size()
+                                    for t in leaves)}
         t1 = time.time()
-        leaves = _leaves(copy).values()
-        return {"params": copy, "version": self._updates,
-                "n_leaves": len(leaves),
-                "nbytes": sum(t.numel() * t.element_size() for t in leaves),
-                "t0": t0, "t1": t1, "wall_s": round(t1 - t0, 6)}
+        ticket.update(version=self._updates, t0=t0, t1=t1,
+                      wall_s=round(t1 - t0, 6))
+        return ticket
+
+    def shipment_receipt(self, sid: str) -> Optional[Dict[str, Any]]:
+        """The producer's pump receipt of one shipment (first and last
+        ``take``), joined with the consumer's fetch into the iteration's
+        transfer receipt."""
+        from ray_tpu_torch import collective
+
+        return collective.shipment_receipt(sid)
 
     def cancel_shipment(self, ticket: Dict[str, Any]) -> None:
-        """Drop an unredeemed ticket's copy (the pipeline calls this when
-        the generator's sync fails)."""
+        """Drop an unredeemed ticket's copy or shipment (the pipeline
+        calls this when the generator's sync fails)."""
+        if "sid" in ticket:
+            from ray_tpu_torch import collective
+
+            collective.cancel_shipment(ticket)
         ticket.pop("params", None)
 
     def get_params(self):
@@ -262,11 +306,13 @@ class RLHFReference:
         self._params = _own_policy(params, self.cfg, seed, self.device,
                                    torch.float32)
 
+    def ping(self) -> str:
+        return "reference"
 
     def logprobs(self, sequences, prompt_len: int) -> Dict[str, Any]:
         t0 = time.time()
-        tokens = torch.as_tensor(np.asarray(sequences, np.int64),
-                                 device=self.device)
+        tokens = torch.tensor(np.asarray(sequences, np.int64),
+                              device=self.device)
         out = _host(rlhf_models.sequence_logprobs(
             self._params, tokens, prompt_len, self.cfg))
         t1 = time.time()
@@ -292,11 +338,13 @@ class RLHFReward:
             self._params = reward_params_from_jax(
                 params, self.cfg, device=self.device, dtype=torch.float32)
 
+    def ping(self) -> str:
+        return "reward"
 
     def score(self, sequences) -> Dict[str, Any]:
         t0 = time.time()
-        tokens = torch.as_tensor(np.asarray(sequences, np.int64),
-                                 device=self.device)
+        tokens = torch.tensor(np.asarray(sequences, np.int64),
+                              device=self.device)
         out = _host(rlhf_models.reward_score(self._params, tokens, self.cfg))
         t1 = time.time()
         return {"scores": out, "t0": t0, "t1": t1,
@@ -311,7 +359,7 @@ class RLHFGenerator:
     def __init__(self, preset: Preset, seed: int, max_slots: int,
                  max_len: int, decode_stride: int, *, params=None,
                  device: DeviceLike = None):
-        device = resolve_device(device)
+        self.device = device = resolve_device(device)
         self.cfg = _config(preset)
         # same seed as the learner: generation starts on the SAME initial
         # policy the learner will update
@@ -321,9 +369,12 @@ class RLHFGenerator:
             params, self.cfg, max_slots=max_slots, max_len=max_len,
             decode_stride=decode_stride, device=device)
         # the version of the weights decoding now (0 = the seed init; each
-        # sync stamps the learner version its ticket carried)
+        # sync stamps the learner version its ticket carried; an actor
+        # restart rebuilds on the seed weights, version 0 again)
         self._weights_version = 0
 
+    def ping(self) -> str:
+        return "generator"
 
     def generate(self, prompts, max_new_tokens: int) -> Dict[str, Any]:
         """Decode every prompt through the engine's slots (mid-flight
@@ -352,20 +403,27 @@ class RLHFGenerator:
                 "engine": self.engine.stats()}
 
     def sync_weights(self, ticket: Dict[str, Any]) -> Dict[str, Any]:
-        """Redeem the learner's ticket: swap its copy in behind the drain
-        barrier (the engine adopts the copy's tensors: it is already on
-        the device in the engine's dtype). Stamps the sync interval and
-        the version now decoding; the ticket is redeemed once."""
+        """Redeem the learner's ticket: its copy (one process) or its
+        shipment (``collective.fetch_params``, the leaves landing on this
+        role's card in the engine's dtype), swapped in behind the drain
+        barrier (the engine adopts the tensors). Stamps the sync interval
+        and the version now decoding; the ticket is redeemed once."""
         t0 = time.time()
         tp0 = time.perf_counter()
-        swap = self.engine.load_params(ticket["params"])
-        ticket.pop("params", None)
+        if "sid" in ticket:
+            from ray_tpu_torch import collective
+
+            params, info = collective.fetch_params(ticket)
+        else:
+            params = ticket.pop("params")
+            info = {"transport": "device", "rpcs": 0,
+                    "nbytes": int(ticket["nbytes"]),
+                    "n_leaves": int(ticket["n_leaves"]),
+                    "oid_leaves": 0, "inline_leaves": 0}
+        swap = self.engine.load_params(params)
+        del params
         self._weights_version = int(
             ticket.get("version", self._weights_version + 1))
-        info = {"transport": "device", "rpcs": 0,
-                "nbytes": int(ticket["nbytes"]),
-                "n_leaves": int(ticket["n_leaves"]),
-                "oid_leaves": 0, "inline_leaves": 0}
         info.update(swap)
         info["version"] = self._weights_version
         info["sync_s"] = round(time.perf_counter() - tp0, 4)
@@ -383,14 +441,17 @@ class RLHFGenerator:
 
 
 class RLHFPipeline:
-    """Builds the four roles on one device and runs generate, score,
-    update and sync in turn.
+    """Builds the four roles (actors of a ``RoleGroup`` where the port's
+    runtime is initialized, else objects on one device) and runs
+    generate, score, update and sync in turn.
 
     ``params`` (the initial policy) and ``reward_params`` default to
     draws from ``cfg.seed`` and ``cfg.seed + 1``; given, each role copies
     them. ``sinks`` receive the flight recorder's drain; ``hooks`` the
     ``rt_rlhf_*`` series and the trace context. ``trace_id`` names the
-    pipeline's trace.
+    pipeline's trace. On actors ``learner``, ``reference``, ``reward`` and
+    ``generator`` are the roles' actor handles, and ``group`` their
+    ``RoleGroup``.
     """
 
     def __init__(self, cfg: Optional[RLHFConfig] = None, *, params=None,
@@ -415,28 +476,82 @@ class RLHFPipeline:
                            "span_id": uuid.uuid4().hex[:16]}
         self.trace_id = self._trace_ctx["trace_id"]
         dev = self.device
+        self.group = None
         token = self.hooks.activate(self._trace_ctx)
         try:
-            self.learner = RLHFLearner(
-                c.preset, c.seed, c.lr, c.kl_coeff, c.clip_param,
-                c.num_epochs, params=params, device=dev)
-            self.reference = RLHFReference(c.preset, c.seed, params=params,
-                                           device=dev)
-            self.reward = RLHFReward(c.preset, c.seed + 1,
-                                     params=reward_params, device=dev)
-            self.generator = RLHFGenerator(
-                c.preset, c.seed, c.max_slots, c.max_len, c.decode_stride,
-                params=params, device=dev)
+            if rt.is_initialized():
+                self._place_roles(host_tree(params), host_tree(reward_params))
+            else:
+                self.learner = RLHFLearner(
+                    c.preset, c.seed, c.lr, c.kl_coeff, c.clip_param,
+                    c.num_epochs, params=params, device=dev)
+                self.reference = RLHFReference(c.preset, c.seed,
+                                               params=params, device=dev)
+                self.reward = RLHFReward(c.preset, c.seed + 1,
+                                         params=reward_params, device=dev)
+                self.generator = RLHFGenerator(
+                    c.preset, c.seed, c.max_slots, c.max_len,
+                    c.decode_stride, params=params, device=dev)
         finally:
             self.hooks.deactivate(token)
         self.recorder = PipelineRecorder(f"rlhf-{self.trace_id[:8]}",
                                          sinks=sinks)
 
+    def gpus_per_role(self) -> float:
+        """Each role's GPUs: ``cfg.gpus_per_role`` where set, else none
+        on the CPU and, on ``cuda``, a card each where the cluster has
+        four or more, else a quarter of one."""
+        if self.cfg.gpus_per_role is not None:
+            return float(self.cfg.gpus_per_role)
+        if self.device.type != "cuda":
+            return 0.0
+        gpus = rt.cluster_resources().get("GPU", 0)
+        if gpus < 1:
+            raise RuntimeError(
+                "the RLHF roles compute on cuda and the cluster has no "
+                "GPU; pass device='cpu' for roles on the CPU")
+        return 1.0 if gpus >= 4 else 0.25
+
+    def _place_roles(self, params, reward_params) -> None:
+        """The four roles as actors of one ``PACK`` placement group,
+        created together, then pinged (JAX's ``RoleGroup.start``)."""
+        from ray_tpu_torch.train.worker_group import RoleGroup
+
+        c = self.cfg
+        dev = self.device.type
+        res = {"num_cpus": c.cpus_per_role, "num_gpus": self.gpus_per_role()}
+        g = RoleGroup(f"rlhf-{self.trace_id[:8]}", strategy="PACK")
+        g.add_role("learner", RLHFLearner, c.preset, c.seed, c.lr,
+                   c.kl_coeff, c.clip_param, c.num_epochs, params=params,
+                   device=dev, **res)
+        g.add_role("reference", RLHFReference, c.preset, c.seed,
+                   params=params, device=dev, **res)
+        g.add_role("reward", RLHFReward, c.preset, c.seed + 1,
+                   params=reward_params, device=dev, **res)
+        # the generator survives one crash: it rebuilds on the seed
+        # weights (version 0), which the next staleness stamp shows
+        g.add_role("generator", RLHFGenerator, c.preset, c.seed,
+                   c.max_slots, c.max_len, c.decode_stride, params=params,
+                   device=dev, options={"max_restarts": 1}, **res)
+        g.start()
+        self.group = g
+        self.learner, self.reference = g["learner"], g["reference"]
+        self.reward, self.generator = g["reward"], g["generator"]
+
+    def _submit(self, role: str, method: str, *args):
+        """``role.method(*args)``: submitted (a ref) on actors, run in
+        process (its value)."""
+        fn = getattr(getattr(self, role), method)
+        return fn.remote(*args) if self.group is not None else fn(*args)
+
+    def _value(self, out):
+        return rt.get(out) if self.group is not None else out
+
     # -- phases -----------------------------------------------------------
 
     def _sample_prompts(self) -> List[List[int]]:
         c = self.cfg
-        vocab = self.learner.cfg.vocab_size
+        vocab = _config(c.preset).vocab_size
         return [[int(t) for t in
                  self._rng.integers(1, vocab, size=c.prompt_len)]
                 for _ in range(c.num_prompts)]
@@ -456,41 +571,61 @@ class RLHFPipeline:
         try:
             phases: Dict[str, float] = {}
             t0 = time.perf_counter()
-            gen = self.generator.generate(self._sample_prompts(),
-                                          c.max_new_tokens)
+            gen = self._value(self._submit(
+                "generator", "generate", self._sample_prompts(),
+                c.max_new_tokens))
             phases["generate"] = time.perf_counter() - t0
             seqs = gen["sequences"]
 
             cur_phase = "score"
             t0 = time.perf_counter()
-            # one device: reward, then reference (JAX runs them in
-            # parallel, in this submit order)
-            reward_out = self.reward.score(seqs)
-            ref_out = self.reference.logprobs(seqs, c.prompt_len)
+            # reward and reference are independent reads: in parallel on
+            # actors (JAX's), one after the other in one process
+            reward_out = self._submit("reward", "score", seqs)
+            ref_out = self._submit("reference", "logprobs", seqs,
+                                   c.prompt_len)
+            reward_out, ref_out = self._value(reward_out), \
+                self._value(ref_out)
             rewards = reward_out["scores"]
             ref_logps = ref_out["logprobs"]
             phases["score"] = time.perf_counter() - t0
 
             cur_phase = "update"
             t0 = time.perf_counter()
-            update = self.learner.update(seqs, rewards, ref_logps,
-                                         c.prompt_len)
+            update = self._value(self._submit(
+                "learner", "update", seqs, rewards, ref_logps,
+                c.prompt_len))
             phases["update"] = time.perf_counter() - t0
 
             cur_phase = "ship"
             t0 = time.perf_counter()
-            ticket = self.learner.ship_weights()
+            ticket = self._value(self._submit("learner", "ship_weights"))
             d_ship = time.perf_counter() - t0
             cur_phase = "sync_swap"
             try:
-                sync = self.generator.sync_weights(ticket)
+                sync = self._value(self._submit("generator", "sync_weights",
+                                                ticket))
             except BaseException:
-                # the ticket was never redeemed: drop its copy
-                self.learner.cancel_shipment(ticket)
+                # the ticket was never redeemed: drop its copy or its
+                # shipment (a stranded shipment holds a policy copy)
+                try:
+                    self._value(self._submit("learner", "cancel_shipment",
+                                             ticket))
+                except Exception:  # noqa: BLE001 — best-effort cleanup
+                    pass
                 raise
             d_swap = time.perf_counter() - t0 - d_ship
             phases["sync"] = time.perf_counter() - t0
+            # the iteration's work ends here: the pump receipt read below
+            # is recorder telemetry, outside the wall the coverage divides
             iter_p1 = time.perf_counter()
+            pump = None
+            if "sid" in ticket:
+                try:
+                    pump = self._value(self._submit(
+                        "learner", "shipment_receipt", ticket["sid"]))
+                except Exception:  # noqa: BLE001 — receipt is telemetry
+                    pump = None
         except BaseException as exc:
             try:
                 self.recorder.record_interrupt(
@@ -531,6 +666,9 @@ class RLHFPipeline:
                    "fetch_wall_s": sync.get("fetch_wall_s", 0.0),
                    "barrier_drain_s": sync["drain_s"],
                    "swap_apply_s": sync.get("apply_s", 0.0)}
+        if pump and "pump_wall_s" in pump:
+            receipt["pump_wall_s"] = pump["pump_wall_s"]
+            receipt["frames_taken"] = int(pump.get("frames_taken", 0))
         decoded_version = int(gen.get("weights_version", 0))
         staleness = max(0, learner_version - decoded_version)
 
@@ -608,9 +746,11 @@ class RLHFPipeline:
                    "tokens_generated": self._tokens_generated,
                    "sync_bytes_total": self._sync_bytes,
                    "trace_id": self.trace_id,
-                   "placement": {role: str(self.device) for role in
-                                 ("learner", "reference", "reward",
-                                  "generator")},
+                   "placement": (
+                       self.group.describe() if self.group is not None
+                       else {role: str(self.device) for role in
+                             ("learner", "reference", "reward",
+                              "generator")}),
                    "last": dict(self._last)}
         try:
             out["recorder"] = self.recorder.summary()
@@ -623,4 +763,7 @@ class RLHFPipeline:
             self.recorder.close()
         except Exception:  # noqa: BLE001 — teardown best-effort
             pass
-        self.generator.engine.shutdown()
+        if self.group is not None:
+            self.group.shutdown()
+        else:
+            self.generator.engine.shutdown()

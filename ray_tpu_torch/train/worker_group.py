@@ -113,6 +113,11 @@ class RoleGroup:
     placement story ``rt trace`` shows when the creating driver runs
     under a span (`RLHFPipeline` enables tracing around ``start()`` so
     every ``<Role>.__init__`` + readiness ping becomes a span).
+
+    A role's bundle may hold a GPU share beside its CPUs (``num_gpus``:
+    a fraction shares a card, whole GPUs pin the role's worker to its
+    cards through ``CUDA_VISIBLE_DEVICES``). ``start`` creates every role
+    before it pings any, so cold workers start together.
     """
 
     def __init__(self, name: str, strategy: str = "PACK"):
@@ -123,20 +128,29 @@ class RoleGroup:
         self._roles: List[Dict[str, Any]] = []
 
     def add_role(self, role: str, actor_cls: type, *args,
-                 num_cpus: float = 1, options: Optional[Dict] = None,
+                 num_cpus: float = 1, num_gpus: float = 0,
+                 options: Optional[Dict] = None,
                  **kwargs) -> "RoleGroup":
         """Declare one role (call before ``start``); chainable."""
         if any(r["role"] == role for r in self._roles):
             raise ValueError(f"duplicate role {role!r}")
         self._roles.append({"role": role, "cls": actor_cls, "args": args,
                             "kwargs": kwargs, "num_cpus": num_cpus,
+                            "num_gpus": num_gpus,
                             "options": dict(options or {})})
         return self
+
+    @staticmethod
+    def _bundle(r: Dict[str, Any]) -> Dict[str, float]:
+        b = {"CPU": r["num_cpus"]}
+        if r["num_gpus"]:
+            b["GPU"] = r["num_gpus"]
+        return b
 
     def start(self, timeout: float = 300) -> None:
         if not self._roles:
             raise ValueError("no roles declared")
-        bundles = [{"CPU": r["num_cpus"]} for r in self._roles]
+        bundles = [self._bundle(r) for r in self._roles]
         self.pg = placement_group(bundles, strategy=self.strategy,
                                   name=self.name)
         if not self.pg.wait(timeout=timeout):
@@ -148,6 +162,8 @@ class RoleGroup:
             for i, r in enumerate(self._roles):
                 opts = dict(r["options"])
                 opts.setdefault("num_cpus", r["num_cpus"])
+                if r["num_gpus"]:
+                    opts.setdefault("num_gpus", r["num_gpus"])
                 opts["scheduling_strategy"] = \
                     PlacementGroupSchedulingStrategy(self.pg, i)
                 handle = ray_tpu_torch.remote(r["cls"]).options(**opts).remote(
@@ -167,7 +183,7 @@ class RoleGroup:
     def describe(self) -> List[Dict[str, Any]]:
         """role -> bundle placement (the `rt trace` companion table)."""
         return [{"role": r["role"], "bundle_index": i,
-                 "num_cpus": r["num_cpus"],
+                 "num_cpus": r["num_cpus"], "num_gpus": r["num_gpus"],
                  "actor": type(r["cls"]).__name__
                  if not isinstance(r["cls"], type) else r["cls"].__name__}
                 for i, r in enumerate(self._roles)]

@@ -319,10 +319,32 @@ def test_run_train_and_tuned_example(tmp_path):
 
 
 def test_refusals_name_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP item R"):
+    # num_learners > 0 builds a LearnerGroup of learner actors: without
+    # the port's runtime it raises the runtime's error, as JAX's does;
+    # under a runtime it builds and trains
+    # (tests/test_torch_rl_actors.py, tests/test_torch_learner_group.py)
+    import ray_tpu_torch as rt
+
+    if rt.is_initialized():
+        rt.shutdown()
+    with pytest.raises(RuntimeError, match="not been initialized"):
         trl.PPOConfig(num_learners=2, hidden=HIDDEN).build(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item R"):
+    with pytest.raises(RuntimeError, match="not been initialized"):
         trl.A2CConfig(num_learners=1).build(device="cpu")
+    rt.init(local_mode=True, num_cpus=4)
+    try:
+        for cfg in (trl.PPOConfig(num_learners=2, hidden=HIDDEN,
+                                  num_envs_per_runner=2,
+                                  rollout_fragment_length=8),
+                    trl.A2CConfig(num_learners=1, hidden=HIDDEN,
+                                  num_envs_per_runner=2,
+                                  rollout_fragment_length=8)):
+            algo = cfg.build(device="cpu")
+            assert isinstance(algo.learner, trl.LearnerGroup)
+            assert np.isfinite(algo.train()["loss"])
+            algo.stop()
+    finally:
+        rt.shutdown()
     # external envs and the mesh learner are ported: what stays refused
     # is an external env without its spec (JAX's ValueError) and a mesh
     # beside a device

@@ -258,8 +258,11 @@ def test_alphazero_defaults_and_run_train():
     for name, jcls in (("ALPHAZERO", jaz.AlphaZeroConfig),
                        ("LEELACHESSZERO", jlc0.LeelaChessZeroConfig)):
         cfg = ttrain.get_algorithm_config(name)
-        assert vars(cfg).keys() == vars(jcls()).keys()
-        for k, v in vars(jcls()).items():
+        # JAX's num_tpus_per_learner is the port's num_gpus_per_learner
+        jvars = {("num_gpus_per_learner" if k == "num_tpus_per_learner"
+                  else k): v for k, v in vars(jcls()).items()}
+        assert vars(cfg).keys() == jvars.keys()
+        for k, v in jvars.items():
             if k != "algo_class":
                 assert getattr(cfg, k) == v, (name, k)
     res = ttrain.run_train("alphazero", config_json='{"num_simulations": 3,'

@@ -157,16 +157,22 @@ def test_compute_gae_equal_on_done_patterns(pattern):
         assert got[k].dtype == want[k].dtype
 
 
+# JAX's field name -> the port's (the learner's accelerator share)
+RENAMED = {"num_tpus_per_learner": "num_gpus_per_learner"}
+
+
 def _fields(cfg):
-    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
-            if f.name != "algo_class"}
+    return {RENAMED.get(f.name, f.name): getattr(cfg, f.name)
+            for f in dataclasses.fields(cfg) if f.name != "algo_class"}
 
 
 def test_algorithm_config_builders_equal():
     """The same builder chain and dict on both sides gives the same
-    fields; ``lambda`` maps to ``lambda_``; an unknown key and a config
-    without an algorithm are refused alike."""
-    assert [f.name for f in dataclasses.fields(jconfig.AlgorithmConfig)] \
+    fields; ``lambda`` maps to ``lambda_``; JAX's ``num_tpus_per_learner``
+    is the port's ``num_gpus_per_learner``, set by either name; an unknown
+    key and a config without an algorithm are refused alike."""
+    assert [RENAMED.get(f.name, f.name)
+            for f in dataclasses.fields(jconfig.AlgorithmConfig)] \
         == [f.name for f in dataclasses.fields(tconfig.AlgorithmConfig)]
     cfgs = []
     for mod in (jconfig, tconfig):
@@ -194,6 +200,11 @@ def test_algorithm_config_builders_equal():
         cfgs.append(_fields(cfg))
     assert cfgs[0] == cfgs[1]
     assert cfgs[1]["lambda_"] == 0.9
+    assert cfgs[1]["num_gpus_per_learner"] == 1
+    port = tconfig.AlgorithmConfig().resources(num_gpus_per_learner=0.5)
+    assert port.num_gpus_per_learner == 0.5
+    port.update_from_dict({"num_tpus_per_learner": 0.25})
+    assert port.num_gpus_per_learner == 0.25
     assert tconfig.AlgorithmConfig(num_env_runners=0) \
         .effective_train_batch_size == 8 * 64
 

@@ -261,5 +261,12 @@ def test_learner_grad_sync_and_refusals():
     # holds the mesh update against JAX's)
     with pytest.raises(ValueError, match="a mesh or a device"):
         tlearner.Learner(tp, None, 1e-3, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item R"):
-        tlearner.LearnerGroup(lambda: None, 2)
+    # a LearnerGroup of learner actors needs the port's runtime: without
+    # one it raises the runtime's error (tests/test_torch_learner_group.py
+    # holds the group against JAX's)
+    import ray_tpu_torch as rt
+
+    if rt.is_initialized():
+        rt.shutdown()
+    with pytest.raises(RuntimeError, match="not been initialized"):
+        tlearner.LearnerGroup(lambda device: None, 2, device="cpu")

@@ -281,8 +281,10 @@ def test_bandit_rejections_and_defaults():
             env="Pendulum-v1").build(device="cpu")
     cfg = tbandits.BanditLinTS.get_default_config()
     assert cfg.algo_class is tbandits.BanditLinTS
-    assert vars(cfg).keys() == vars(
-        jbandits.BanditLinTS.get_default_config()).keys()
+    # JAX's num_tpus_per_learner is the port's num_gpus_per_learner
+    assert vars(cfg).keys() == {
+        "num_gpus_per_learner" if k == "num_tpus_per_learner" else k
+        for k in vars(jbandits.BanditLinTS.get_default_config())}
     assert jrl.BanditConfig().env == trl.BanditConfig().env \
         == "LinearBandit-v0"
 
